@@ -15,11 +15,23 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    cloud with fewer live targets than k;
 4. the room-loop sentinel: 20 poses of the runner's ``--synthetic`` config;
 5. the full-size slice: 40 scans of the KITTI proxy (idealized render)
-   under ``kitti_config()`` through ``slam_step``.
+   under ``kitti_config()`` through ``slam_step``;
+6. K3 (``radius_moments``) against its plain version: self-moments of a
+   voxel-filtered 8192-point scan, hard cutoff (r = 1.0 m) and taper
+   (σ = 0.5 m), 70% of targets masked, all masked, 1 km from the origin;
+7. K4 (``nn1_matmul``) against its plain version and beside K1, on the
+   8192 × 8192 scan and the 8192 × 262,144 map cases of phase 2;
+8. the radius mission: 500 scans of the KITTI proxy under
+   ``kitti_config()`` with radius covariances in both ICP stages
+   (``radius_config()``) through ``runner.run_slam`` — the run that
+   reaches loop closure and the incremental window solve at full width.
 
-Kernel times are medians of CUDA-event timings after warm-up. The line
-before the last is a JSON object with one entry per kernel; the last line
-is ``{"ok": true, "device": {...}}``. The script needs no JAX.
+Each path (phases 4, 5 and 8) is driven with every launch count set to 0
+just before it and read just after. Kernel times are medians of
+CUDA-event timings after warm-up; ``bound_ms`` is the least time the card
+could take for the same work (``_bound``). The line before the last is a
+JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``. The script needs no JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +44,20 @@ import time
 
 D2_ABS = 1e-6
 D2_REL = 1e-6
+# K3 against its plain version: mean and covariance (and the tapered
+# weight sum) within MOM_ABS + MOM_REL·|plain|; the hard count is equal
+# except on queries with a pair within BOUNDARY·r² of the radius
+MOM_ABS = 1e-5
+MOM_REL = 1e-5
+BOUNDARY = 1e-5
+# K4 (matmul form) rounds with its operands: tol = K4_REL·(|q_c|² + |t_c|²) + K4_ABS
+K4_REL = 4e-7
+K4_ABS = 1e-6
+# published peaks of one H100 SXM (FP32 outside the tensor cores; HBM3)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+MISSION_SCANS = 500
+MISSION_ATE = 0.10
 
 
 def _timed(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -88,6 +114,22 @@ def _compare_idx(name: str, q, t, idx_k, idx_p, d_p) -> None:
     d_kernel_pick = _sqdist((t - center)[idx_k[differ]] - (q - center)[rows])
     if not torch.equal(d_kernel_pick, d_p[differ]):
         raise AssertionError(f"{name}: {int(differ.sum())} indices differ without a tie")
+
+
+def _bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the FP32 operations over the
+    card's FP32 peak and the bytes moved (each input read once, each
+    output written once) over its memory rate."""
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nn_bound(n: int, m: int, live: int, out_bytes_per_query: int):
+    """1-NN / k-NN style search: 8 FP32 operations per (query, live target)
+    pair (3 subtractions or the cross term, 3 multiplies, 2 adds); bytes of
+    q, t, mask and the outputs."""
+    return _bound(8.0 * n * live, 12 * n + 12 * m + m + out_bytes_per_query * n)
 
 
 def phase_device_and_build():
@@ -216,33 +258,33 @@ def phase_k2(clouds, dev):
 
 
 def _drive(source, cfg, poses, dev):
-    """Run the port's runner loop with launch counters set to 0 first."""
+    """Run the port's runner loop with every kernel's launch count set to 0
+    just before it; the counts are read just after."""
     import torch
 
     from icpslam_tpu_torch.geometry.se3 import Pose
     from icpslam_tpu_torch.io import runner
-    from icpslam_tpu_torch.ops import nn
 
     stream, gt = source(cfg, poses, 10.0)
     init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
     torch.cuda.reset_peak_memory_stats(dev)
-    nn.nn1_cuda.launches = 0
-    nn.knn_cuda.launches = 0
+    for fn in runner.KERNELS.values():
+        fn.launches = 0
     res = runner.run_slam(stream, cfg, init, dev)
-    launches = {"nn1": nn.nn1_cuda.launches, "knn": nn.knn_cuda.launches}
+    launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     summary = {**res.summary(), **runner.evaluate(res, gt)}
     if not torch.isfinite(torch.from_numpy(res.records[:, :7])).all():
         raise AssertionError("non-finite poses in the trajectory")
     if res.records.shape != (poses, 18):
         raise AssertionError(f"records shape {res.records.shape}")
-    return summary, launches, peak
+    return summary, launches, peak, res
 
 
 def phase_sentinel(dev):
     from icpslam_tpu_torch.io import runner
 
-    s, launches, _ = _drive(runner.synthetic_source, runner.synthetic_config(), 20, dev)
+    s, launches, _, _ = _drive(runner.synthetic_source, runner.synthetic_config(), 20, dev)
     print(f"[4] room-loop sentinel: ATE {s['ate_m']:.4f} m, {s['loop_closures']} loop-closure "
           f"edges, {s['optimizations']} optimizations, launches {launches}")
     if not s["ate_m"] <= 0.02:
@@ -259,7 +301,7 @@ def phase_slice(dev):
     from icpslam_tpu_torch.io import runner
 
     n = 40
-    s, launches, peak = _drive(runner.kitti_proxy_source, kitti_config(), n, dev)
+    s, launches, peak, _ = _drive(runner.kitti_proxy_source, kitti_config(), n, dev)
     print(f"[5] kitti_config slice, {n} scans: ATE {s['ate_m']:.4f} m, accepted "
           f"{s['accepted']}/{n}, {s['optimizations']} optimizations, {s['keyframes']} keyframes")
     print(f"[5] ms/scan median {s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} "
@@ -277,6 +319,178 @@ def phase_slice(dev):
     return {**s, "peak_bytes": peak}, launches
 
 
+def _near_boundary(p, m, r):
+    """Queries with a live target whose float64 d² lies within BOUNDARY·r² of r²."""
+    import torch
+
+    p64 = p.double()
+    rows = []
+    for s in range(0, p.shape[0], 1024):
+        d2 = ((p64[None, :, :] - p64[s : s + 1024, None, :]) ** 2).sum(-1)
+        rows.append(((d2 - r * r).abs() < BOUNDARY * r * r) & m[None, :])
+    return torch.cat([x.any(1) for x in rows])
+
+
+def _close(name, a, b) -> float:
+    """|a − b| ≤ MOM_ABS + MOM_REL·|b| elementwise; returns the max |a − b|."""
+    diff = (a - b).abs()
+    bad = diff > MOM_ABS + MOM_REL * b.abs()
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} entries differ, max {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def phase_k3(clouds, dev):
+    import torch
+
+    from icpslam_tpu_torch.ops import radius_stats as rs
+
+    c = clouds[0]
+    pts, mask = c.points.contiguous(), c.mask
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    keep30 = (torch.rand(pts.shape[0], generator=gen) >= 0.7).to(dev) & mask
+    far = torch.tensor([1000.0, -1000.0, 1000.0], device=dev)
+    r, sigma = 1.0, 0.5
+    cases = {
+        "hard": (pts, mask, 0.0),
+        "taper": (pts, mask, sigma),
+        "hard, 70% masked": (pts, keep30, 0.0),
+        "taper, 70% masked": (pts, keep30, sigma),
+        "all masked": (pts, torch.zeros_like(mask), sigma),
+        "hard, 1 km from origin": ((pts + far).contiguous(), mask, 0.0),
+        "taper, 1 km from origin": ((pts + far).contiguous(), mask, sigma),
+    }
+    err, inside = 0.0, 0
+    for name, (p, m, sg) in cases.items():
+        k = rs.radius_moments_cuda(p, p, m, r, sg)
+        pl = rs.radius_moments_plain(p, p, m, r, sg)
+        torch.cuda.synchronize()
+        rows = ~_near_boundary(p, m, r)
+        if sg == 0.0:
+            if not torch.equal(k[0][rows], pl[0][rows]):
+                raise AssertionError(f"radius {name}: counts differ")
+        err = max(err, _close(f"radius {name} count", k[0][rows], pl[0][rows]))
+        err = max(err, _close(f"radius {name} mean", k[1][rows], pl[1][rows]))
+        err = max(err, _close(f"radius {name} cov", k[2][rows], pl[2][rows]))
+        if name == "hard":
+            inside = int(pl[0].sum())
+        if name == "all masked" and any(bool(x.any()) for x in k):
+            raise AssertionError("radius all masked: expected zeros")
+    ms = _timed(lambda: rs.radius_moments_cuda(pts, pts, mask, r, sigma))
+    plain_ms = _timed(lambda: rs.radius_moments_plain(pts, pts, mask, r, sigma), iters=10)
+    n, live = pts.shape[0], int(mask.sum())
+    # 8 operations per live pair for d², then for each pair in radius one
+    # expf (counted as one operation) and 19 for the weighted sums; ~30
+    # per query for the epilogue
+    bound = _bound(8.0 * n * live + 20.0 * inside + 30.0 * n, 12 * n + 12 * n + n + 52 * n)
+    print(f"[6] radius_moments self 8192, r {r}, sigma {sigma}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); {inside} pairs in radius; "
+          f"matches on {len(cases)} cases, max err {err:.3g}")
+    return err, ms, plain_ms, bound
+
+
+def phase_k4(clouds, query_world, map_pts, fill, dev):
+    import torch
+
+    from icpslam_tpu_torch.ops import nn
+    from icpslam_tpu_torch.ops.nn import _sqdist
+
+    q, t = clouds[1], clouds[0]
+    map_mask = torch.arange(map_pts.shape[0], device=dev) < fill
+    cases = {
+        "scan 8192x8192": (q.points, t.points, t.mask, t.mask.sum(dtype=torch.int32)),
+        "map 8192x262144": (query_world.points, map_pts, map_mask,
+                            torch.tensor(fill, dtype=torch.int32, device=dev)),
+    }
+    err, times = 0.0, {}
+    for name, (qq, tt, mm, vl) in cases.items():
+        qq, tt = qq.contiguous(), tt.contiguous()
+        k = nn.nn1_matmul_cuda(qq, tt, mm, vl)
+        p = nn.nearest_neighbors_matmul_plain(qq, tt, mm, vl)
+        k1 = nn.nn1_cuda(qq, tt, mm, vl)
+        torch.cuda.synchronize()
+        center = qq.mean(0)
+        qc, tc = qq - center, tt - center
+        qc2, tc2 = _sqdist(qc), _sqdist(tc)
+        tol = K4_REL * (qc2 + torch.maximum(tc2[k.idx], tc2[p.idx])) + K4_ABS
+        fin = torch.isfinite(p.dist2)
+        if not torch.equal(fin, torch.isfinite(k.dist2)):
+            raise AssertionError(f"nn1_matmul {name}: inf pattern differs")
+        diff = (k.dist2 - p.dist2).abs()[fin]
+        if (diff > tol[fin]).any():
+            raise AssertionError(f"nn1_matmul {name}: d2 off by up to {float(diff.max())}")
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        sub_k = _sqdist(tc[k.idx] - qc)
+        sub_p = _sqdist(tc[p.idx] - qc)
+        differ = (k.idx != p.idx) & fin
+        if ((sub_k - sub_p).abs() > tol)[differ].any():
+            raise AssertionError(f"nn1_matmul {name}: indices differ beyond the rounding")
+        if ((sub_k - k1.dist2).abs() > tol)[fin].any():
+            raise AssertionError(f"nn1_matmul {name}: its pick is not K1's within the rounding")
+        times[name] = (
+            _timed(lambda: nn.nn1_matmul_cuda(qq, tt, mm, vl)),
+            _timed(lambda: nn.nearest_neighbors_matmul_plain(qq, tt, mm, vl), iters=20),
+            _timed(lambda: nn.nn1_cuda(qq, tt, mm, vl)),
+        )
+        print(f"[7] nn1_matmul {name}: kernel {times[name][0]:.4f} ms, plain "
+              f"{times[name][1]:.4f} ms, K1 in the same call {times[name][2]:.4f} ms; "
+              f"{int(differ.sum())} picks differ from the plain version")
+    print(f"[7] nn1_matmul matches its plain version and K1 within the rounding, "
+          f"max |d2 err| {err:.3g}")
+    return err, times
+
+
+def radius_config():
+    """``kitti_config()`` with radius covariances in both ICP stages: r =
+    1.0 m (2.5 leaves of the 0.4 m voxel) and a Gaussian taper σ = r/2.
+    Both stages share them, so scan-to-map reuses the odometry's."""
+    from icpslam_tpu_torch.config import IcpConfig, kitti_config
+
+    radius = dict(covariance_mode="radius", covariance_radius=1.0, covariance_sigma=0.5)
+    return kitti_config(
+        icp_odometry=IcpConfig(mode="plane", max_iterations=10, max_correspondence_distance=2.0,
+                               huber_delta=1.0, **radius),
+        icp_mapping=IcpConfig(mode="plane", max_iterations=30, max_correspondence_distance=2.0,
+                              huber_delta=1.0, **radius),
+    )
+
+
+def phase_mission(dev):
+    import numpy as np
+
+    from icpslam_tpu_torch.io import runner
+
+    n = MISSION_SCANS
+    s, launches, peak, res = _drive(runner.kitti_proxy_source, radius_config(), n, dev)
+    per = {k: v / n for k, v in launches.items()}
+    print(f"[8] radius mission, {n} scans: ATE {s['ate_m']:.4f} m, accepted {s['accepted']}/{n}, "
+          f"{s['keyframes']} keyframes, {s['loop_closures']} loop-closure edges, "
+          f"{s['window_solves']} window and {s['full_solves']} full solves")
+    print(f"[8] ms/scan median {s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} "
+          f"(first scan {s['first_step_ms']:.1f}); host syncs/scan {s['host_syncs_per_scan']:.2f}; "
+          f"launches/scan K1 {per['nn1']:.2f}, K2 {per['knn']:.2f}, K3 {per['radius']:.2f}, "
+          f"K4 {per['nn1_matmul']:.2f}; peak memory {peak / 2**20:.1f} MiB")
+    rec = res.records
+    loops = np.nonzero(rec[:, 13] > 0)[0]
+    full = (rec[:, 14] > 0) & (np.asarray(res.window_solves) == 0)
+    if s["accepted"] < 0.9 * n:
+        raise AssertionError(f"only {s['accepted']}/{n} scans accepted")
+    if not s["ate_m"] <= MISSION_ATE:
+        raise AssertionError(f"mission ATE {s['ate_m']} > {MISSION_ATE} m")
+    if s["loop_closures"] < 1 or not loops.size:
+        raise AssertionError("no loop-closure edge")
+    if s["window_solves"] < 1:
+        raise AssertionError("no window solve ran")
+    if not full[loops[0]:].any():
+        raise AssertionError("no full solve after a loop closure")
+    if launches["radius"] < s["processed"] or launches["radius"] < 1:
+        raise AssertionError(f"K3 launched {launches['radius']} times for {s['processed']} "
+                             "processed scans")
+    if launches["knn"] != 0 or launches["nn1"] < 1:
+        raise AssertionError(f"radius mode must bypass K2 and run K1: {launches}")
+    return {**s, "peak_bytes": peak, "first_loop_scan": int(loops[0])}, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write all results to this JSON file")
@@ -289,29 +503,64 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
     phase_device_and_build()
     clouds, query_world, map_pts, fill = _main_path_clouds(dev)
     print(f"    main-path clouds: {[int(c.mask.sum()) for c in clouds]} live of 8192; map fill {fill}")
     k1_err, k1_times = phase_k1(clouds, query_world, map_pts, fill, dev)
     k2_err, k2_ms, k2_plain = phase_k2(clouds, dev)
     sentinel = phase_sentinel(dev)
-    slice_summary, launches = phase_slice(dev)
+    slice_summary, slice_launches = phase_slice(dev)
+    k3_err, k3_ms, k3_plain, k3_bound = phase_k3(clouds, dev)
+    k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
+    mission, mission_launches = phase_mission(dev)
+    print(f"    all phases in {time.perf_counter() - t_start:.1f} s")
 
+    n, live = 8192, int(clouds[0].mask.sum())
+    k1_bound = _nn_bound(n, n, live, 8)
+    k1_map_bound = _nn_bound(n, map_pts.shape[0], fill, 8)
+    print(f"    bounds: K1 {k1_bound[0]:.4f} ms at 8192 x {live} live, "
+          f"{k1_map_bound[0]:.4f} ms at 8192 x {fill} map fill ({k1_map_bound[1]})")
+    k2_bound = _nn_bound(n, n, live, 80)
+    k4_bound = _nn_bound(n, n, live, 8)
+    slice_path = f"kitti_config slice, {slice_summary['scans']} scans (phase 5)"
+    mission_path = f"radius mission, {mission['scans']} scans (phase 8)"
     kernels = [
         {"name": "nn1", "route": "cuda", "source": "icpslam_tpu_torch/csrc/nn1.cu",
-         "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:309", "launches": launches["nn1"],
+         "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:309",
+         "launches": mission_launches["nn1"], "path": mission_path,
          "max_abs_err": k1_err, "ms": k1_times["scan 8192x8192"][0],
-         "plain_ms": k1_times["scan 8192x8192"][1]},
+         "plain_ms": k1_times["scan 8192x8192"][1], "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "knn", "route": "cuda", "source": "icpslam_tpu_torch/csrc/knn.cu",
-         "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:450", "launches": launches["knn"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:450",
+         "launches": slice_launches["knn"], "path": slice_path,
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "radius_moments", "route": "cuda",
+         "source": "icpslam_tpu_torch/csrc/radius_moments.cu",
+         "replaces": "icpslam_tpu/ops/pallas/radius_stats_kernel.py:69",
+         "launches": mission_launches["radius"], "path": mission_path,
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
+        {"name": "nn1_matmul", "route": "cuda", "source": "icpslam_tpu_torch/csrc/nn1_matmul.cu",
+         "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:123",
+         "launches": mission_launches["nn1_matmul"],
+         "path": "none: no path of slam_step calls it (nor in JAX)",
+         "max_abs_err": k4_err, "ms": k4_times["scan 8192x8192"][0],
+         "plain_ms": k4_times["scan 8192x8192"][1], "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": None},
     ]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({
                 "kernels": kernels,
                 "nn1_map_ms": k1_times["map 8192x262144"],
+                "nn1_map_bound": k1_map_bound,
+                "nn1_matmul_vs_nn1_ms": k4_times,
                 "sentinel": sentinel, "slice": slice_summary,
+                "slice_launches": slice_launches, "mission": mission,
+                "mission_launches": mission_launches,
                 "device": torch.cuda.get_device_name(0),
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ accumulation, the node-0 gauge anchor, and GN / LM with a dense Cholesky
 (``torch.linalg.cholesky_ex``, no host check). :func:`optimize_bucketed`
 solves at the live size, which on append-only stores equals the JAX
 bucketed solve; it raises where the JAX ``'auto'`` rule would pick PCG.
-PCG, Schur, the window solve and marginalization are not ported yet.
+:func:`optimize_window` is the incremental solve of the trailing window,
+conditioned on the frozen prefix. PCG, Schur and marginalization are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -165,7 +167,7 @@ def resolve_linear_solver(linear_solver: str, n_nodes: int) -> str:
 def _not_ported(solver: str) -> NotImplementedError:
     return NotImplementedError(
         f"linear_solver='{solver}' is not ported yet — ROADMAP.md Queue 1, "
-        "'the window solve, bucketing beyond direct, and PCG' / 'Schur'"
+        "'PCG and the 'auto' rule above 256 nodes' / 'Schur and the deferred solve'"
     )
 
 
@@ -183,12 +185,19 @@ def optimize(
     solver = resolve_linear_solver(linear_solver, nodes.t.shape[0])
     if solver != "direct":
         raise _not_ported(solver)
-    c0 = graph_cost(nodes, edges)
 
     def step(nds, lam):
         H, b = normal_equations(nds, edges, node_mask)
         return _solve_and_update(nds, H, b, lam, node_mask)[0]
 
+    return _gn_or_lm(step, nodes, edges, iterations, mode, init_damping)
+
+
+def _gn_or_lm(step, nodes: Pose, edges: EdgeSet, iterations: int, mode: str, init_damping: float):
+    """``iterations`` fixed GN steps (``step(nodes, 0.0)``) or LM steps that
+    are kept only when they lower the graph's cost, the damping halved on
+    accept and quadrupled on reject — all on the device, no host read."""
+    c0 = graph_cost(nodes, edges)
     if mode == "gn":
         for _ in range(iterations):
             nodes = step(nodes, 0.0)
@@ -204,6 +213,17 @@ def optimize(
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), torch.clamp(lam * 4.0, max=1e6))
         cost = torch.where(accept, c_new, cost)
     return nodes, SolveStats(c0, cost, torch.tensor(iterations))
+
+
+def live_edges(edges: EdgeSet, edge_count: int) -> EdgeSet:
+    """The first ``edge_count`` edges (at least one; a host int). The
+    edges past the count are invalid and add nothing to any solve."""
+    m = max(edge_count, 1)
+    return EdgeSet(
+        i=edges.i[:m], j=edges.j[:m], rel_t=edges.rel_t[:m], rel_q=edges.rel_q[:m],
+        info=edges.info[:m], valid=edges.valid[:m], count=edges.count,
+        overflow=edges.overflow,
+    )
 
 
 def bucket_size(node_count: int, edge_count: int, K: int, E: int, min_bucket: int) -> int:
@@ -242,17 +262,105 @@ def optimize_bucketed(
     if solver != "direct":
         raise _not_ported(solver)
     n = max(node_count, 1)
-    m = max(edge_count, 1)
-    sub_edges = EdgeSet(
-        i=edges.i[:m], j=edges.j[:m], rel_t=edges.rel_t[:m], rel_q=edges.rel_q[:m],
-        info=edges.info[:m], valid=edges.valid[:m], count=edges.count,
-        overflow=edges.overflow,
-    )
     opt, stats = optimize(
-        Pose(t=nodes.t[:n], q=nodes.q[:n]), sub_edges, node_mask[:n],
+        Pose(t=nodes.t[:n], q=nodes.q[:n]), live_edges(edges, edge_count), node_mask[:n],
         linear_solver="direct", **kw,
     )
     full = Pose(t=nodes.t.clone(), q=nodes.q.clone())
     full.t[:n] = opt.t
     full.q[:n] = opt.q
     return full, stats
+
+
+def _window_normal_equations(
+    nodes: Pose,
+    edges: EdgeSet,
+    start: int,
+    window: int,
+    local_mask: torch.Tensor,
+    anchor_weight: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(W, 6, W, 6) H and (W, 6) b of the window ``[start, start+W)``.
+
+    Exact conditioning on the frozen prefix: an edge endpoint outside the
+    window has its Jacobian zeroed, which removes its rows and columns
+    from H while its residual stays evaluated at the frozen pose — an
+    edge into the prefix becomes a unary prior on its in-window endpoint.
+    Window-relative indices are clipped to ``[0, W)``; a clipped endpoint
+    has a zero Jacobian, so what it adds is zero. The gauge anchor goes
+    on window node 0 with ``anchor_weight`` (0 unless ``start == 0``).
+    """
+    W = window
+    dt, dev = nodes.t.dtype, nodes.t.device
+    r, Ji, Jj = _edge_jacobians(nodes, edges)
+    ei, ej = edges.i.long(), edges.j.long()
+    in_i = ((ei >= start) & (ei < start + W)).to(dt)
+    in_j = ((ej >= start) & (ej < start + W)).to(dt)
+    info = edges.info * edges.valid.to(dt)[:, None, None]
+    Ji = Ji * in_i[:, None, None]
+    Jj = Jj * in_j[:, None, None]
+    ci = torch.clamp(ei - start, 0, W - 1)
+    cj = torch.clamp(ej - start, 0, W - 1)
+    JiT_O = Ji.mT @ info
+    JjT_O = Jj.mT @ info
+    Hii, Hij, Hjj = JiT_O @ Ji, JiT_O @ Jj, JjT_O @ Jj
+    H = torch.zeros((W, W, 6, 6), dtype=dt, device=dev)
+    H.index_put_((ci, ci), Hii, accumulate=True)
+    H.index_put_((ci, cj), Hij, accumulate=True)
+    H.index_put_((cj, ci), Hij.mT, accumulate=True)
+    H.index_put_((cj, cj), Hjj, accumulate=True)
+    b = torch.zeros((W, 6), dtype=dt, device=dev)
+    b.index_add_(0, ci, (JiT_O @ r[..., None])[..., 0])
+    b.index_add_(0, cj, (JjT_O @ r[..., None])[..., 0])
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    diag = torch.arange(W, device=dev)
+    H[diag, diag] += (~local_mask).to(dt)[:, None, None] * eye6
+    b = b * local_mask[:, None]
+    if anchor_weight:
+        H[0, 0] += anchor_weight * eye6
+    return H.permute(0, 2, 1, 3), b
+
+
+def optimize_window(
+    nodes: Pose,
+    edges: EdgeSet,
+    node_mask: torch.Tensor,
+    node_count: int,
+    window: int,
+    iterations: int = 10,
+    mode: str = "lm",
+    init_damping: float = 1e-4,
+    anchor_weight: float = 1e6,
+) -> Tuple[Pose, SolveStats]:
+    """Incremental solve: only the last ``window`` live nodes move,
+    conditioned exactly on the frozen prefix (JAX ``optimize_window``).
+
+    ``node_count`` is a host int, so ``start = max(node_count − W, 0)`` is
+    one too and the window is a plain slice. The damping is
+    ``(λ + 1e-9)·max(scale, 1e-6)`` on each diagonal block; the LM accept
+    test compares the cost of the whole graph. The gauge anchor is added
+    only when the window starts at node 0; otherwise the frozen prefix
+    anchors it through the sequential edge ``(start−1, start)``.
+    ``optimize_window.calls`` counts the calls.
+    """
+    optimize_window.calls += 1
+    K = nodes.t.shape[0]
+    W = min(window, K)
+    start = max(node_count - W, 0)
+    dev = nodes.t.device
+    local_mask = (torch.arange(W, device=dev) + start < node_count) & node_mask[start : start + W]
+    aw = anchor_weight if start == 0 else 0.0
+
+    def step(nds: Pose, lam) -> Pose:
+        H, b = _window_normal_equations(nds, edges, start, W, local_mask, aw)
+        win = Pose(t=nds.t[start : start + W], q=nds.q[start : start + W])
+        new, _ = _solve_and_update(win, H, b, lam + 1e-9, local_mask)
+        t, q = nds.t.clone(), nds.q.clone()
+        t[start : start + W] = new.t
+        q[start : start + W] = new.q
+        return Pose(t=t, q=q)
+
+    return _gn_or_lm(step, nodes, edges, iterations, mode, init_damping)
+
+
+optimize_window.calls = 0

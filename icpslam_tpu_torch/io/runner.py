@@ -2,13 +2,17 @@
 
     python -m icpslam_tpu_torch.io.runner --synthetic --poses 20
     python -m icpslam_tpu_torch.io.runner --kitti-proxy --no-proxy-physics --poses 40
+    python -m icpslam_tpu_torch.io.runner --kitti-proxy --no-proxy-physics --config my.yaml
 
 ``--synthetic`` is the room loop of the JAX runner (``icpslam_tpu/io/runner.py``)
 with its default config; ``--kitti-proxy --no-proxy-physics`` the urban
-proxy with the idealized render under ``kitti_config()``. The run prints
-ATE/RPE against the ground truth and a one-line JSON summary, including
-the host syncs and kernel launches per scan. ``--device cuda`` (the
-default when a card is present) never falls back to the CPU.
+proxy with the idealized render under ``kitti_config()``. ``--config``
+loads the whole ``SlamConfig`` from YAML instead (PyYAML is needed only
+then), as the JAX runner's flag does. The run prints ATE/RPE against the
+ground truth and a one-line JSON summary, including the host syncs and
+kernel launches per scan and the window and full graph solves.
+``--device cuda`` (the default when a card is present) never falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -17,31 +21,42 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from icpslam_tpu_torch.cloud import pointcloud as pc
-from icpslam_tpu_torch.config import IcpConfig, SlamConfig, kitti_config
+from icpslam_tpu_torch.config import IcpConfig, SlamConfig, from_yaml, kitti_config
 from icpslam_tpu_torch.eval import metrics
 from icpslam_tpu_torch.geometry.se3 import Pose
+from icpslam_tpu_torch.graph import pose_graph
 from icpslam_tpu_torch.io import synthetic
 from icpslam_tpu_torch.ops import nn as nn_ops
+from icpslam_tpu_torch.ops import radius_stats
 from icpslam_tpu_torch.pipeline import slam
 from icpslam_tpu_torch.utils.sync import to_host
+
+# the kernel wrappers, by the name the summary reports their launches under
+KERNELS = {
+    "nn1": nn_ops.nn1_cuda,                          # K1
+    "knn": nn_ops.knn_cuda,                          # K2
+    "radius": radius_stats.radius_moments_cuda,      # K3
+    "nn1_matmul": nn_ops.nn1_matmul_cuda,            # K4
+}
 
 
 @dataclasses.dataclass
 class RunResult:
     trajectory: Pose          # (T,) map-frame pose per scan, on the host
     records: np.ndarray       # (T, 18) packed per-scan records
+    processed: np.ndarray     # (T,) bool: the scan was registered
     state: slam.SlamState
     wall_time: float
     step_ms: List[float]      # per-scan step time, device work included
     host_syncs: List[int]     # counted host reads per scan
-    nn1_launches: List[int]   # K1 launches per scan (CUDA only)
-    knn_launches: List[int]   # K2 launches per scan (CUDA only)
+    launches: Dict[str, List[int]]  # per kernel of KERNELS, launches per scan (CUDA only)
+    window_solves: List[int]  # incremental window solves per scan
 
     def summary(self) -> dict:
         r = self.records
@@ -49,15 +64,18 @@ class RunResult:
             "scans": int(r.shape[0]),
             "wall_time_s": self.wall_time,
             "accepted": int(r[:, 7].sum()),
+            "processed": int(self.processed.sum()),
             "keyframes": int(self.state.keyframes.count),
             "edges": int(self.state.edges.count),
             "loop_closures": int(self.state.num_loop_closures),
             "optimizations": int(self.state.num_optimizations),
+            "window_solves": int(sum(self.window_solves)),
+            "full_solves": int(self.state.num_optimizations) - int(sum(self.window_solves)),
             "map_size": int(self.state.map.size),
             "host_syncs_per_scan": float(np.mean(self.host_syncs)) if self.host_syncs else 0.0,
-            "nn1_launches_per_scan": float(np.mean(self.nn1_launches)) if self.nn1_launches else 0.0,
-            "knn_launches_per_scan": float(np.mean(self.knn_launches)) if self.knn_launches else 0.0,
         }
+        for name, per_scan in self.launches.items():
+            out[f"{name}_launches_per_scan"] = float(np.mean(per_scan)) if per_scan else 0.0
         if self.step_ms:
             a = np.asarray(self.step_ms[1:] or self.step_ms)
             out.update(step_ms_p50=float(np.median(a)), step_ms_p90=float(np.percentile(a, 90)),
@@ -73,12 +91,14 @@ def run_slam(
     device = torch.device(device)
     state = slam.init_state(config, initial_pose, device=device)
     cuda = device.type == "cuda"
-    packed, step_ms, syncs, k1, k2 = [], [], [], [], []
+    packed, processed, step_ms, syncs, windows = [], [], [], [], []
+    launches = {name: [] for name in KERNELS}
     origin = None
     t0 = time.perf_counter()
     for (points, mask), stamp in scans:
         origin = stamp if origin is None else origin
-        s0, n0, m0 = to_host.count, nn_ops.nn1_cuda.launches, nn_ops.knn_cuda.launches
+        s0, w0 = to_host.count, pose_graph.optimize_window.calls
+        k0 = {name: fn.launches for name, fn in KERNELS.items()}
         ts = time.perf_counter()
         cloud = pc.PointCloud(
             points=torch.from_numpy(points).to(device), mask=torch.from_numpy(mask).to(device)
@@ -88,17 +108,20 @@ def run_slam(
             torch.cuda.synchronize(device)
         step_ms.append((time.perf_counter() - ts) * 1000.0)
         syncs.append(to_host.count - s0)
-        k1.append(nn_ops.nn1_cuda.launches - n0)
-        k2.append(nn_ops.knn_cuda.launches - m0)
+        windows.append(pose_graph.optimize_window.calls - w0)
+        for name, fn in KERNELS.items():
+            launches[name].append(fn.launches - k0[name])
         packed.append(out.packed)
+        processed.append(out.odom_out.processed)
     records = (
         to_host(torch.stack(packed)) if packed else np.zeros((0, 18), np.float32)
     )
+    registered = to_host(torch.stack(processed)) if processed else np.zeros((0,), bool)
     traj = Pose(t=torch.from_numpy(records[:, :3]), q=torch.from_numpy(records[:, 3:7]))
     return RunResult(
-        trajectory=traj, records=records, state=state,
+        trajectory=traj, records=records, processed=registered, state=state,
         wall_time=time.perf_counter() - t0, step_ms=step_ms, host_syncs=syncs,
-        nn1_launches=k1, knn_launches=k2,
+        launches=launches, window_solves=windows,
     )
 
 
@@ -155,6 +178,11 @@ def main(argv=None) -> int:
         help="(--kitti-proxy) idealized render; required — the sensor-physics "
         "render needs de-skew, which is not ported yet",
     )
+    ap.add_argument(
+        "--config", type=str, default=None,
+        help="load the SlamConfig from this YAML file (needs PyYAML) instead "
+        "of the source's default config",
+    )
     ap.add_argument("--poses", type=int, default=40)
     ap.add_argument("--rate", type=float, default=10.0)
     ap.add_argument(
@@ -172,10 +200,10 @@ def main(argv=None) -> int:
                 "the sensor-physics proxy needs in-loop de-skew, which is not "
                 "ported yet — ROADMAP.md Queue 1, 'de-skew'; pass --no-proxy-physics"
             )
-        cfg = kitti_config()
+        cfg = from_yaml(args.config) if args.config else kitti_config()
         stream, gt = kitti_proxy_source(cfg, args.poses, args.rate)
     else:
-        cfg = synthetic_config()
+        cfg = from_yaml(args.config) if args.config else synthetic_config()
         stream, gt = synthetic_source(cfg, args.poses, args.rate)
     init = Pose(t=torch.from_numpy(gt[0][0]), q=torch.from_numpy(gt[1][0]))
     init = Pose(t=init.t.to(args.device), q=init.q.to(args.device))

@@ -1,9 +1,9 @@
 """Per-point GICP surface covariances (port of ``icpslam_tpu/ops/covariance.py``).
 
-k-NN neighbourhood (kernel K2 on the card) → neighbour moments →
-closed-form smallest eigenvector → the disk regularization
-``I − (1−ε)·n nᵀ``. Returned components-first, packed (6, N) as
-``[xx, xy, xz, yy, yz, zz]``. JAX on a TPU selects neighbours with an
+k-NN neighbourhood (kernel K2 on the card) → neighbour moments, or
+fixed-radius moments in one pass (kernel K3) → closed-form smallest
+eigenvector → the disk regularization ``I − (1−ε)·n nᵀ``. Returned
+components-first, packed (6, N) as ``[xx, xy, xz, yy, yz, zz]``. JAX on a TPU selects neighbours with an
 approximate top-k at reduced precision; the port's selection is exact,
 which is what the JAX package computes on the CPU.
 """
@@ -14,7 +14,8 @@ import torch
 
 from icpslam_tpu_torch.cloud.pointcloud import PointCloud
 from icpslam_tpu_torch.ops import nn as nn_ops
-from icpslam_tpu_torch.ops.linalg3 import smallest_eigenvector_sym3_comps
+from icpslam_tpu_torch.ops import radius_stats
+from icpslam_tpu_torch.ops.linalg3 import smallest_eigenvector_sym3_comps, sym3_comps
 
 EYE6 = (1.0, 0.0, 0.0, 1.0, 0.0, 1.0)
 
@@ -63,3 +64,20 @@ def gicp_covariances(cloud: PointCloud, k: int = 10, epsilon: float = 1e-3) -> t
     )
     good = (wsum >= 3) & cloud.mask
     return _regularize_comps(comps, good, epsilon)
+
+
+def gicp_covariances_radius(
+    cloud: PointCloud, radius: float, epsilon: float = 1e-3, sigma: float = 0.0
+) -> torch.Tensor:
+    """GICP covariances, packed (6, N), from fixed-radius neighbourhoods
+    (self-moments of the cloud, kernel K3 on the card). ``sigma > 0``
+    tapers the weights as ``exp(−d²/2σ²)`` inside the radius.
+
+    A point needs 3 neighbours (itself included) for the hard cutoff, or
+    a weight sum ``Σw ≥ 2`` with the taper (its own weight alone is 1);
+    the rest, and padding, get identity.
+    """
+    pts = cloud.points
+    count, _, cov = radius_stats.radius_moments(pts, pts, cloud.mask, radius, sigma=sigma)
+    good = (count >= (2.0 if sigma > 0 else 3.0)) & cloud.mask
+    return _regularize_comps(sym3_comps(cov), good, epsilon)

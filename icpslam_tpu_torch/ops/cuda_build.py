@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The kernels have a plain C interface; ``nvcc`` compiles them for
-``sm_90a`` into one shared library, loaded with ``ctypes``. The library
-is built at first use, from the sources in the package only, into
+The kernels have a plain C interface; ``nvcc`` compiles each source for
+``sm_90a`` to an object, all sources at once in parallel processes, and
+links the objects into one shared library, loaded with ``ctypes``. The
+library is built at first use, from the sources in the package only, into
 ``icpslam_tpu_torch/_build/`` (git-ignored); its file name carries a hash
 of the sources and flags, so an edited source rebuilds it. Nothing is
 built or imported when this module is imported — the CPU tests import
@@ -23,14 +24,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nn1.cu", "knn.cu")
+SOURCES = ("nn1.cu", "knn.cu", "radius_moments.cu", "nn1_matmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -65,14 +67,32 @@ def load() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+        cmds = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)
+        ]
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for c in cmds
+        ]
+        outs = [p.communicate()[0] for p in procs]
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *(str(o) for o in objs)]
+        linked = None
+        if all(p.returncode == 0 for p in procs):
+            linked = subprocess.run(link, capture_output=True, text=True)
+        text = "".join(" ".join(c) + "\n" + o for c, o in zip(cmds, outs))
+        if linked is not None:
+            text += " ".join(link) + "\n" + linked.stdout + linked.stderr
+        log.write_text(text)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if linked is None or linked.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{text}")
         os.replace(tmp, out)
     load.build_seconds = time.perf_counter() - t0
     load.log = log
@@ -81,6 +101,10 @@ def load() -> ctypes.CDLL:
     lib.icpslam_nn1.restype = _I
     lib.icpslam_knn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
     lib.icpslam_knn.restype = _I
+    lib.icpslam_radius_moments.argtypes = [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P]
+    lib.icpslam_radius_moments.restype = _I
+    lib.icpslam_nn1_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P]
+    lib.icpslam_nn1_matmul.restype = _I
     return lib
 
 

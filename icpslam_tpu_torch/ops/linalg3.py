@@ -14,6 +14,14 @@ import numpy as np
 import torch
 
 
+def sym3_comps(A: torch.Tensor):
+    """Split symmetric (..., 3, 3) into its six (...,) components."""
+    return (
+        A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
+        A[..., 1, 1], A[..., 1, 2], A[..., 2, 2],
+    )
+
+
 def inv_sym3_comps(a, b, c, d, e, f, eps: float = 1e-12):
     """Inverse of ``[[a,b,c],[b,d,e],[c,e,f]]`` with a clamped determinant."""
     cof00 = d * f - e * e

@@ -3,14 +3,18 @@
 Each public function dispatches on the device of its tensors:
 
 - a CUDA tensor goes to the hand-written kernel (``csrc/nn1.cu`` for
-  :func:`nearest_neighbors`, ``csrc/knn.cu`` for :func:`knn`), or the call
-  raises — there is no fallback;
+  :func:`nearest_neighbors`, ``csrc/knn.cu`` for :func:`knn`,
+  ``csrc/nn1_matmul.cu`` for :func:`nearest_neighbors_matmul`), or the
+  call raises — there is no fallback;
 - a CPU tensor goes to the plain PyTorch version beside it
-  (:func:`nearest_neighbors_plain`, :func:`knn_plain`).
+  (:func:`nearest_neighbors_plain`, :func:`knn_plain`,
+  :func:`nearest_neighbors_matmul_plain`).
 
-Both versions compute the subtraction-form ``Σ_c (t_c − q_c)²`` in float32
-on coordinates centred on the query centroid, so they agree bit-for-bit on
-distances and differ only in which of two exactly tied targets they pick.
+K1 and K2 compute the subtraction-form ``Σ_c (t_c − q_c)²`` in float32
+on coordinates centred on the query centroid, so kernel and plain version
+agree bit-for-bit on distances and differ only in which of two exactly
+tied targets they pick. K4 is the matmul form ``|t|² − 2 t·q + |q|²`` of
+the JAX v1 kernel, which no path of ``slam_step`` calls.
 JAX's TPU tile constraint (``pick_tiles``) has no counterpart: the kernels
 take any N and M and mask the ragged edge themselves.
 """
@@ -232,3 +236,88 @@ def knn_cuda(query, target, target_mask, k: int):
 
 
 knn_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: 1-NN in matmul form
+# ---------------------------------------------------------------------------
+
+
+def nearest_neighbors_matmul(
+    query: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    valid_len: Optional[torch.Tensor] = None,
+) -> NNResult:
+    """1-NN by ``d² = |t|² − 2 t·q + |q|²`` on query-centred coordinates,
+    in float32 (JAX ``nearest_neighbors_pallas``, v1). Its rounding error
+    scales with ``|q|² + |t|²``, not with d²; ``nearest_neighbors`` is the
+    exact search the pipeline uses. d² is clamped at 0; no live target
+    gives index 0 and d² = inf."""
+    dev = _check(query, target, target_mask, valid_len)
+    if dev.type == "cuda":
+        return nn1_matmul_cuda(query, target, target_mask, valid_len)
+    return nearest_neighbors_matmul_plain(query, target, target_mask, valid_len)
+
+
+def nearest_neighbors_matmul_plain(query, target, target_mask, valid_len=None) -> NNResult:
+    """The plain PyTorch version of K4 (blocked ``matmul`` cross term)."""
+    _check(query, target, target_mask, valid_len)
+    if valid_len is not None:
+        live_len = min(max(int(valid_len), 0), target.shape[0])
+        target, target_mask = target[:live_len], target_mask[:live_len]
+    n, m = query.shape[0], target.shape[0]
+    center = query.mean(0)
+    qc = query - center
+    tc = target - center
+    if m == 0:
+        return NNResult(
+            idx=torch.zeros(n, dtype=torch.int64, device=query.device),
+            dist2=torch.full((n,), _INF, device=query.device),
+        )
+    tn2 = torch.where(target_mask, _sqdist(tc), _INF)
+    qn2 = _sqdist(qc)
+    idx_parts, d2_parts = [], []
+    step = _row_block(m)
+    for s in range(0, n, step):
+        d2 = tn2[None, :] - 2.0 * (qc[s : s + step] @ tc.T) + qn2[s : s + step, None]
+        best, idx = d2.min(1)
+        idx_parts.append(idx)
+        d2_parts.append(best)
+    idx, d2 = torch.cat(idx_parts), torch.cat(d2_parts)
+    found = torch.isfinite(d2)
+    return NNResult(
+        idx=torch.where(found, idx, torch.zeros_like(idx)),
+        dist2=torch.where(found, torch.clamp(d2, min=0.0), d2),
+    )
+
+
+def nn1_matmul_cuda(query, target, target_mask, valid_len=None) -> NNResult:
+    """Launch K4 (``csrc/nn1_matmul.cu``) on the current stream.
+
+    Replaces ``icpslam_tpu/ops/pallas/nn_kernel.py::nearest_neighbors_pallas``:
+    one thread per query, shared-memory tiles of (t, |t|²), register
+    argmin, FP32 on the CUDA cores with FMA contraction. Bound by FP32
+    throughput like K1. ``nn1_matmul_cuda.launches`` counts the kernel launches.
+    """
+    dev = _check(query, target, target_mask, valid_len, need_contiguous=True)
+    if dev.type != "cuda":
+        raise ValueError("nn1_matmul_cuda takes CUDA tensors")
+    lib = cuda_build.load()
+    n, m = query.shape[0], target.shape[0]
+    center = query.mean(0).contiguous()
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    d2 = torch.empty(n, dtype=torch.float32, device=dev)
+    if n:
+        code = lib.icpslam_nn1_matmul(
+            query.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
+            None if valid_len is None else valid_len.data_ptr(),
+            center.data_ptr(), n, m, idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        cuda_build.check(code, "icpslam_nn1_matmul")
+        nn1_matmul_cuda.launches += 1
+    return NNResult(idx=idx.long(), dist2=d2)
+
+
+nn1_matmul_cuda.launches = 0

@@ -1,7 +1,7 @@
 """ICP scan-to-scan odometry front-end (port of ``icpslam_tpu/pipeline/odometry.py``).
 
-Voxel filter → k-NN GICP covariances → ICP against the previous cloud →
-accept gate → pose and accumulator update. The JAX ``lax.cond`` around the
+Voxel filter → GICP covariances (k-NN or radius) → ICP against the
+previous cloud → accept gate → pose and accumulator update. The JAX ``lax.cond`` around the
 registration becomes a host branch on ``do_register``, which the caller
 passes in (it reads the state's flags once per scan). De-skew is not part
 of the port yet and raises.
@@ -21,16 +21,15 @@ from icpslam_tpu_torch.ops import covariance as cov_ops
 from icpslam_tpu_torch.ops import icp as icp_ops
 
 
-RADIUS_NOT_PORTED = (
-    "covariance_mode='radius' (kernel K3) is not ported yet — "
-    "ROADMAP.md Queue 1, 'radius covariances with K3'"
-)
-
-
 def compute_covariances(cloud: pc.PointCloud, icfg) -> torch.Tensor:
-    """Covariances per the ICP config (k-NN mode only in the port)."""
+    """Covariances for a cloud per the ICP config (radius or k-NN mode)."""
     if icfg.covariance_mode == "radius":
-        raise NotImplementedError(RADIUS_NOT_PORTED)
+        return cov_ops.gicp_covariances_radius(
+            cloud,
+            radius=icfg.covariance_radius,
+            epsilon=icfg.covariance_epsilon,
+            sigma=icfg.covariance_sigma,
+        )
     return cov_ops.gicp_covariances(
         cloud, k=icfg.covariance_knn, epsilon=icfg.covariance_epsilon
     )
@@ -86,11 +85,6 @@ def check_supported(config) -> None:
             "in-loop de-skew (deskew_rounds > 0) is not ported yet — "
             "ROADMAP.md Queue 1, 'de-skew'"
         )
-    if any(
-        icfg.mode == "plane" and icfg.covariance_mode == "radius"
-        for icfg in (config.icp_odometry, config.icp_mapping)
-    ):
-        raise NotImplementedError(RADIUS_NOT_PORTED)
 
 
 def odometry_step(

@@ -9,10 +9,9 @@ reads the state's small counters once at its start and a few flags as it
 goes, each through the counted :func:`~icpslam_tpu_torch.utils.sync.to_host`.
 
 Parts of the JAX step that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP item instead of doing something else: de-skew, radius
-covariances, the voxel and sharded maps, marginalization at a full
-keyframe store, the incremental window solve, PCG/Schur/dist-* solvers,
-wheel-odometry edges and the deferred solve.
+naming their ROADMAP item instead of doing something else: de-skew, the
+voxel and sharded maps, marginalization at a full keyframe store,
+PCG/Schur/dist-* solvers, wheel-odometry edges and the deferred solve.
 """
 
 from __future__ import annotations
@@ -185,27 +184,30 @@ def _try_loop_closure(
 
 
 def _optimize(state: SlamState, config, counts: dict) -> Tuple[SlamState, torch.Tensor]:
-    """Full direct solve of the live graph, then the map reset and the
-    ``map→odom`` recompute. ``counts`` holds the host values of the
-    keyframe, edge and loop-since-last-solve counters."""
+    """The graph solve, then the map reset and the ``map→odom`` recompute.
+    ``counts`` holds the host values of the keyframe, edge and
+    loop-since-last-solve counters.
+
+    JAX's rule (``slam.py:377-401``): with ``graph_incremental``, a full
+    bucketed solve runs when a loop closure arrived since the last solve
+    or the graph still fits the window; otherwise only the trailing
+    ``graph_window`` nodes are solved, conditioned on the frozen prefix.
+    """
     store = state.keyframes
     n_kf, n_edges, lc_since = counts["keyframes"], counts["edges"], counts["lc_since_opt"]
-    if config.graph_incremental and lc_since == 0 and n_kf > config.graph_window:
-        raise NotImplementedError(
-            "the incremental window solve (keyframes > graph_window with no "
-            "loop closure since the last solve) is not ported yet — "
-            "ROADMAP.md Queue 1, 'the window solve, bucketing beyond direct, and PCG'"
+    kw = dict(iterations=config.graph_solver_iterations, mode=config.graph_solver)
+    use_full = not config.graph_incremental or lc_since > 0 or n_kf <= config.graph_window
+    if use_full:
+        min_bucket = config.graph_bucket_min if config.graph_bucketing else store.capacity
+        opt_nodes, stats = pg.optimize_bucketed(
+            store.pose_graph, state.edges, store.valid_mask(), n_kf, n_edges,
+            min_bucket=min_bucket, linear_solver=config.graph_linear_solver, **kw,
         )
-    kw = dict(
-        iterations=config.graph_solver_iterations,
-        mode=config.graph_solver,
-        linear_solver=config.graph_linear_solver,
-    )
-    min_bucket = config.graph_bucket_min if config.graph_bucketing else store.capacity
-    opt_nodes, stats = pg.optimize_bucketed(
-        store.pose_graph, state.edges, store.valid_mask(), n_kf, n_edges,
-        min_bucket=min_bucket, **kw,
-    )
+    else:
+        opt_nodes, stats = pg.optimize_window(
+            store.pose_graph, pg.live_edges(state.edges, n_edges), store.valid_mask(),
+            n_kf, config.graph_window, **kw,
+        )
     new_store = kf.set_graph_poses(store, opt_nodes)
     m2o = se3.compose(kf.latest(new_store), se3.inverse(kf.latest_odom(new_store)))
     new_map = map_backend.reset(state.map) if config.reset_map_on_optimize else state.map

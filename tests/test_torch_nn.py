@@ -3,13 +3,19 @@
 K1: the port's ``nearest_neighbors`` (plain version on the CPU) against
 ``nearest_neighbors_pallas3`` in interpret mode and against the JAX XLA
 (matmul-form) path. K2: the port's ``knn`` against ``knn_pallas`` in
-interpret mode and ``nn.knn(approx=False)``. Inputs come from numpy seeds.
+interpret mode and ``nn.knn(approx=False)``. K4: the port's
+``nearest_neighbors_matmul`` against ``nearest_neighbors_pallas`` (v1) in
+interpret mode. Inputs come from numpy seeds.
 
 Tolerances:
 - d² against v3: 1e-6 abs + 1e-6 rel — both evaluate the same
   subtraction form in float32 on query-centred coordinates;
 - d² against the matmul forms: 1e-4 abs, for their |q|² − 2q·t + |t|²
   cancellation;
+- K4 against v1: both round the matmul form, whose error scales with the
+  operands, so d² agrees within tol = 4e-7·(|q_c|² + |t_c|²) + 1e-6 (q_c,
+  t_c centred on the query centroid), and where the picks differ, their
+  exact d² lie within 2·tol of each other;
 - indices: equal wherever the second-best d² exceeds the best by more than
   2⁻¹⁵ relative (v3 selects on d² quantized to 2⁻¹⁶ relative at bt=128,
   ``nn_kernel.py:398-400``; the matmul forms round at a similar scale).
@@ -21,7 +27,11 @@ import pytest
 import torch
 
 from icpslam_tpu.ops import nn as jnn
-from icpslam_tpu.ops.pallas.nn_kernel import knn_pallas, nearest_neighbors_pallas3
+from icpslam_tpu.ops.pallas.nn_kernel import (
+    knn_pallas,
+    nearest_neighbors_pallas,
+    nearest_neighbors_pallas3,
+)
 from icpslam_tpu_torch.ops import nn as tnn
 
 GAP = 2.0**-15
@@ -131,6 +141,44 @@ def test_nn_exact_against_float64():
     d = _exact_d2(q, t, mask)
     sep = _separated(d)
     np.testing.assert_array_equal(idx[sep], d.argmin(1)[sep])
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_nn_matmul_matches_pallas_v1(name):
+    q, t, mask, vl = _case(name)
+    res = tnn.nearest_neighbors_matmul(
+        torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask),
+        valid_len=None if vl is None else torch.tensor(vl, dtype=torch.int32),
+    )
+    idx, d2 = res.idx.numpy(), res.dist2.numpy()
+    r = nearest_neighbors_pallas(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(mask),
+        valid_len=None if vl is None else jnp.asarray(vl, jnp.int32),
+        bq=256, bt=128, interpret=True,
+    )
+    ridx, rd2 = np.asarray(r.idx), np.asarray(r.dist2)
+    center = q.astype(np.float64).mean(0)
+    qc2 = ((q - center) ** 2).sum(-1)
+    tc2 = ((t - center) ** 2).sum(-1)
+    tol = 4e-7 * (qc2 + tc2[idx]) + 1e-6
+    assert np.all(np.abs(d2 - rd2) <= tol)
+    assert np.all(mask[idx])
+    exact = _exact_d2(q, t, mask)
+    rows = np.arange(len(q))
+    differ = idx != ridx
+    assert np.all(np.abs(exact[rows, idx] - exact[rows, ridx])[differ] <= 2 * tol[differ])
+    # the matmul form still picks the exact nearest neighbour wherever the
+    # runner-up is farther than the rounding
+    sep = _separated(exact)
+    assert (idx[sep] == exact.argmin(1)[sep]).mean() > 0.99
+
+
+def test_nn_matmul_all_masked():
+    q, t, _, _ = _case("random")
+    res = tnn.nearest_neighbors_matmul(
+        torch.from_numpy(q), torch.from_numpy(t), torch.zeros(512, dtype=torch.bool)
+    )
+    assert torch.isinf(res.dist2).all() and (res.idx == 0).all()
 
 
 def _port_knn(q, t, mask, k):

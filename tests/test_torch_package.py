@@ -1,8 +1,10 @@
-"""The PyTorch port as a package: no JAX import, the shared config, the
-numpy scan producers against the JAX ones, kernel modules that import
-without a compiler, and the NotImplementedError boundaries of the slice."""
+"""The PyTorch port as a package: no JAX import, its own copy of the
+config held to the JAX one, the numpy scan producers against the JAX ones,
+kernel modules that import without a compiler, and the
+NotImplementedError boundaries of the slice."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -19,7 +21,7 @@ from icpslam_tpu_torch.cloud import pointcloud as tpc
 from icpslam_tpu_torch.graph import pose_graph as tpg
 from icpslam_tpu_torch.io import runner as trunner
 from icpslam_tpu_torch.io import synthetic as tsyn
-from icpslam_tpu_torch.ops import cuda_build, nn as tnn
+from icpslam_tpu_torch.ops import cuda_build, nn as tnn, radius_stats as trs
 from icpslam_tpu_torch.pipeline import slam as tslam
 
 REPO = Path(__file__).resolve().parent.parent
@@ -43,6 +45,11 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'icpslam_tpu.')))\n"
         "assert not bad, bad\n"
+        # nothing executed from the JAX package's files either, under any name
+        f"jax_pkg = {str(REPO / 'icpslam_tpu')!r} + '/'\n"
+        "files = sorted(getattr(m, '__file__', None) or '' for m in list(sys.modules.values()))\n"
+        "bad = [f for f in files if f.startswith(jax_pkg)]\n"
+        "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -50,6 +57,56 @@ def test_import_leaves_jax_out():
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_config_is_the_ports_own():
+    assert Path(tconfig.__file__).resolve().parent == PORT
+    assert "icpslam_tpu_torch._shared_config" not in sys.modules
+    assert tconfig.SlamConfig.__module__ == "icpslam_tpu_torch.config"
+
+
+@pytest.mark.parametrize("name", ["kitti.yaml", "default.yaml"])
+def test_config_copy_reads_yaml_as_jax_does(name):
+    path = REPO / "configs" / name
+    assert dataclasses.asdict(tconfig.from_yaml(str(path))) == dataclasses.asdict(
+        jax_config.from_yaml(str(path))
+    )
+
+
+def test_config_save_yaml_round_trip(tmp_path):
+    radius = dict(covariance_mode="radius", covariance_radius=1.0, covariance_sigma=0.5)
+    cfg = tconfig.kitti_config(icp_odometry=tconfig.IcpConfig(**radius), graph_window=32)
+    tconfig.save_yaml(cfg, str(tmp_path / "c.yaml"))
+    assert tconfig.from_yaml(str(tmp_path / "c.yaml")) == cfg
+    assert dataclasses.asdict(jax_config.from_yaml(str(tmp_path / "c.yaml"))) == dataclasses.asdict(cfg)
+
+
+def test_radius_mission_config_file():
+    """The committed YAML of the radius mission is chip_smoke.py's
+    ``radius_config()``, read alike by the port and by JAX."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    path = str(PORT / "configs" / "kitti_radius.yaml")
+    want = chip_smoke.radius_config()
+    assert tconfig.from_yaml(path) == want
+    assert dataclasses.asdict(jax_config.from_yaml(path)) == dataclasses.asdict(want)
+
+
+def test_runner_config_flag(tmp_path):
+    radius = tconfig.IcpConfig(covariance_mode="radius", covariance_radius=0.5,
+                               covariance_sigma=0.25, max_iterations=5)
+    cfg = trunner.synthetic_config().replace(
+        max_points=1024, icp_odometry=radius,
+        icp_mapping=tconfig.IcpConfig(mode="point", max_iterations=5))
+    tconfig.save_yaml(cfg, str(tmp_path / "c.yaml"))
+    out = tmp_path / "summary.json"
+    assert trunner.main(["--synthetic", "--poses", "2", "--device", "cpu",
+                         "--config", str(tmp_path / "c.yaml"), "--summary-out", str(out)]) == 0
+    summary = json.loads(out.read_text())
+    assert summary["scans"] == 2 and summary["processed"] == 1
 
 
 def test_config_is_the_shared_one():
@@ -131,13 +188,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tnn.knn_cuda(q, q, m, 2)
     with pytest.raises(ValueError):
         tnn.knn(q, q, m, 17)
+    with pytest.raises(ValueError):
+        trs.radius_moments_cuda(q, q, m, 1.0)
+    with pytest.raises(ValueError):
+        tnn.nn1_matmul_cuda(q, q, m)
     with pytest.raises(TypeError):
         tnn.nearest_neighbors(q.double(), q.double(), m)
 
 
 _OUT_OF_SLICE = {
     "deskew": dict(deskew_rounds=1),
-    "radius": dict(icp_odometry=tconfig.IcpConfig(covariance_mode="radius")),
     "voxel-map": dict(map_backend="voxel"),
     "sharded-map": dict(map_backend="sharded"),
     "wheel-edges": dict(enable_wheel_odom_edges=True),
@@ -174,13 +234,26 @@ def test_full_keyframe_store_marginalization_raises():
             state, _ = tslam.slam_step(state, scan, cfg)
 
 
-def test_incremental_window_solve_raises():
+@pytest.mark.parametrize("stage", ["icp_odometry", "icp_mapping"])
+def test_radius_config_initialises(stage):
+    radius = tconfig.IcpConfig(covariance_mode="radius", covariance_radius=0.6)
+    cfg = tconfig.tiny_config(**{stage: radius})
+    state = tslam.init_state(cfg)
+    assert int(state.keyframes.count) == 0
+
+
+def test_incremental_window_solve_runs():
     cfg = tconfig.tiny_config(graph_window=2, keyframes_window=3, keyframe_distance=0.1,
                               max_points=512, enable_loop_closure=False)
     state = tslam.init_state(cfg)
-    with pytest.raises(NotImplementedError, match="window solve"):
-        for scan in _room_scans(cfg, 4):
-            state, _ = tslam.slam_step(state, scan, cfg)
+    calls = tpg.optimize_window.calls
+    for scan in _room_scans(cfg, 4):
+        state, out = tslam.slam_step(state, scan, cfg)
+    # the solve at the 3rd keyframe finds more keyframes than the window
+    # and no loop closure since the last solve
+    assert int(state.num_optimizations) >= 1
+    assert tpg.optimize_window.calls - calls == int(state.num_optimizations)
+    assert torch.isfinite(state.keyframes.pose_graph.t).all()
 
 
 def test_bucket_resolving_to_pcg_raises():
