@@ -7,12 +7,17 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
 
 1. device and build: requires CUDA, prints the card's name and power limit
    (``nvidia-smi``) and builds the CUDA kernels from ``icpslam_tpu_torch/csrc``;
-2. K1 (``nn1``) against its plain PyTorch version at the main-path shapes:
-   8192 × 8192 voxel-filtered scans, 8192 queries against a 262,144-point
-   map at ~21k fill with ``valid_len``, masked, all-masked and 1 km from
-   the origin;
-3. K2 (``knn``) against its plain version: self-kNN at 8192, k = 10, and a
-   cloud with fewer live targets than k;
+2. K1 (``nn1``) against its plain PyTorch version at the main-path shapes,
+   equal d² bits and equal indices: 8192 × 8192 voxel-filtered scans,
+   8192 queries against a 262,144-point map at ~22k fill with
+   ``valid_len``, masked, all-masked, 1 km from the origin, and the
+   adversarial cases of the tile skip (``_grid_cloud``): exact duplicates
+   in different tiles visited out of index order, a target exactly at the
+   AABB-bound distance, ``valid_len`` ending mid-tile, one query hundreds
+   of metres from every target, ragged N and M;
+3. K2 (``knn``) against its plain version, likewise: self-kNN at 8192 with
+   k = 10 and 16, duplicates inside the k-list, fewer live targets than
+   k, all masked, the far query, ragged N and M, the AABB-bound case;
 4. the room-loop sentinel: 20 poses of the runner's ``--synthetic`` config;
 5. the full-size slice: 40 scans of the KITTI proxy (idealized render)
    under ``kitti_config()`` through ``slam_step``;
@@ -27,11 +32,16 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    reaches loop closure and the incremental window solve at full width.
 
 Each path (phases 4, 5 and 8) is driven with every launch count set to 0
-just before it and read just after. Kernel times are medians of
-CUDA-event timings after warm-up; ``bound_ms`` is the least time the card
-could take for the same work (``_bound``). The line before the last is a
-JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``. The script needs no JAX.
+just before it and read just after. Kernel times (``ms``) are the device
+time per wrapper call, calls enqueued back to back behind a spin kernel
+(``_device_ms``); plain versions are timed by CUDA events around single
+calls (``_timed``). ``bound_ms`` is the least time the card could take
+for the same work (``_bound``). For K1 and K2 it counts the (query, live
+target) pairs this run's tile skip left to evaluate (``pairs_share`` of
+them, from the kernels' pair counter); ``bound_all_pairs_ms`` counts all
+of them, the bound of the earlier records. The line before the last is a
+JSON object with one entry per kernel; the last line is ``{"ok": true,
+"device": {...}}``. The script needs no JAX.
 """
 
 from __future__ import annotations
@@ -42,8 +52,6 @@ import subprocess
 import sys
 import time
 
-D2_ABS = 1e-6
-D2_REL = 1e-6
 # K3 against its plain version: mean and covariance (and the tapered
 # weight sum) within MOM_ABS + MOM_REL·|plain|; the hard count is equal
 # except on queries with a pair within BOUNDARY·r² of the radius
@@ -80,40 +88,65 @@ def _timed(fn, iters: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def _compare_d2(name: str, d_k, d_p) -> float:
-    """d² must agree to D2_ABS + D2_REL·|d²|; inf must match inf. Returns
-    the largest absolute difference over finite entries."""
+def _device_ms(fn, calls: int = 20, reps: int = 7) -> float:
+    """Median device ms per ``fn()`` call, ``calls`` calls enqueued back to
+    back behind a spin kernel, so that host dispatch leaves no gap between
+    them on the device. A repetition whose enqueuing outlasted the spin is
+    repeated with twice the spin; raises past ~1 s of spin."""
     import torch
 
-    inf_k, inf_p = torch.isinf(d_k), torch.isinf(d_p)
-    if not torch.equal(inf_k, inf_p):
-        raise AssertionError(f"{name}: inf pattern differs ({int((inf_k != inf_p).sum())} entries)")
-    fin = ~inf_p
-    if not fin.any():
-        return 0.0
-    diff = (d_k[fin] - d_p[fin]).abs()
-    bad = diff > D2_ABS + D2_REL * d_p[fin].abs()
-    if bad.any():
-        raise AssertionError(f"{name}: {int(bad.sum())} d2 entries differ, max {float(diff.max())}")
-    return float(diff.max())
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    spin = 20_000_000  # cycles, ~10 ms
+    times = []
+    while len(times) < reps:
+        s0 = torch.cuda.Event(enable_timing=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(spin)
+        a.record()
+        h0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        b.record()
+        b.synchronize()
+        if host_ms >= s0.elapsed_time(a):
+            if spin >= 2**31:
+                raise AssertionError(f"enqueuing {calls} calls took {host_ms:.2f} ms, longer "
+                                     f"than the {s0.elapsed_time(a):.2f} ms spin")
+            spin *= 2
+            continue
+        times.append(a.elapsed_time(b) / calls)
+    times.sort()
+    return times[len(times) // 2]
 
 
-def _compare_idx(name: str, q, t, idx_k, idx_p, d_p) -> None:
-    """Indices (1-NN (N,) or k-NN (N, k)) must agree except on exact ties:
-    where they differ, the kernel's pick must be exactly as near as the
-    plain version's."""
+def _pairs(fn) -> int:
+    """(query, live target) pairs that one call ``fn(pairs)`` of K1 or K2
+    evaluated, from the kernels' pair counter."""
     import torch
 
-    from icpslam_tpu_torch.ops.nn import _sqdist
+    pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+    fn(pairs)
+    return int(pairs.item())
 
-    differ = (idx_k != idx_p) & torch.isfinite(d_p)
-    if not differ.any():
-        return
-    center = q.mean(0)
-    rows = differ.nonzero(as_tuple=True)[0]
-    d_kernel_pick = _sqdist((t - center)[idx_k[differ]] - (q - center)[rows])
-    if not torch.equal(d_kernel_pick, d_p[differ]):
-        raise AssertionError(f"{name}: {int(differ.sum())} indices differ without a tie")
+
+def _equal(name: str, idx_k, d_k, idx_p, d_p) -> float:
+    """Kernel and plain version must agree bit for bit on d² and exactly
+    on indices (1-NN (N,) or k-NN (N, k)). Returns the largest |d² error|
+    over finite entries (0.0 when they agree)."""
+    import torch
+
+    if not torch.equal(d_k.view(torch.int32), d_p.view(torch.int32)):
+        bad = d_k.view(torch.int32) != d_p.view(torch.int32)
+        raise AssertionError(f"{name}: {int(bad.sum())} d2 entries differ in their bits")
+    if not torch.equal(idx_k, idx_p):
+        raise AssertionError(f"{name}: {int((idx_k != idx_p).sum())} indices differ")
+    fin = torch.isfinite(d_p)
+    return float((d_k[fin] - d_p[fin]).abs().max()) if fin.any() else 0.0
 
 
 def _bound(ops: float, nbytes: float):
@@ -125,11 +158,11 @@ def _bound(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _nn_bound(n: int, m: int, live: int, out_bytes_per_query: int):
-    """1-NN / k-NN style search: 8 FP32 operations per (query, live target)
-    pair (3 subtractions or the cross term, 3 multiplies, 2 adds); bytes of
-    q, t, mask and the outputs."""
-    return _bound(8.0 * n * live, 12 * n + 12 * m + m + out_bytes_per_query * n)
+def _nn_bound(n: int, m: int, pairs: float, out_bytes_per_query: int):
+    """1-NN / k-NN style search: 8 FP32 operations per (query, target) pair
+    (3 subtractions or the cross term, 3 multiplies, 2 adds); bytes of the
+    n queries, the first m rows of t and mask, and the outputs."""
+    return _bound(8.0 * pairs, 12 * n + 13 * m + out_bytes_per_query * n)
 
 
 def phase_device_and_build():
@@ -186,6 +219,46 @@ def _main_path_clouds(dev):
     return clouds, world_clouds[3], map_pts, fill
 
 
+def _grid_cloud(scan):
+    """Adversarial inputs for the tile skip, from a voxel-filtered scan.
+
+    The scan is rounded to a 0.25 m grid: with 8192 rows and |coordinates|
+    < 128 m the query centroid and every centred coordinate are then exact
+    in float32, so equal distances stay exactly equal. Returns
+    ``(grid, with_p, p_row)``:
+    - ``grid``: 40 low-index live points copied over live points in the
+      last tiles, so a query there meets its duplicate in its own tile
+      first and the lower index in a tile visited later; with the rounding's
+      own coincident points, the k-lists hold exact ties too;
+    - ``with_p``: ``grid`` as queries with row ``p_row`` replaced by a point
+      P 50 m above the cloud whose only neighbours are A (index live − 2,
+      in the last tile) and B (index 5, the largest x of the first 256
+      rows, so of tile 0), both at exactly 0.5 m. Tile 0's bounding box
+      lies at exactly that distance from P, and P's warp reaches A's tile
+      first, so only an inclusive skip test keeps tile 0 and gives B, the
+      lower index.
+    """
+    import torch
+
+    pts, mask = scan.points, scan.mask
+    live = int(mask.sum())
+    if not (bool(mask[:live].all()) and live > 512 and float(pts.abs().max()) < 100):
+        raise AssertionError("grid cloud: expected a live prefix of > 512 points within 100 m")
+    grid = torch.round(pts * 4) / 4
+    src = torch.arange(40, device=pts.device) * 97 + 7
+    dst = live - 5 - 7 * torch.arange(40, device=pts.device)
+    grid[dst] = grid[src]
+    x0 = float(grid[:256, 0].max()) + 1.0
+    y0 = float(grid[0, 1])
+    z0 = float(grid[:live, 2].max()) + 50.0
+    grid[5] = torch.tensor([x0 - 0.5, y0, z0], device=pts.device)
+    grid[live - 2] = torch.tensor([x0 + 0.5, y0, z0], device=pts.device)
+    p_row = 4000
+    with_p = grid.clone()
+    with_p[p_row] = torch.tensor([x0, y0, z0], device=pts.device)
+    return grid.contiguous(), with_p.contiguous(), p_row
+
+
 def phase_k1(clouds, query_world, map_pts, fill, dev):
     import torch
 
@@ -193,17 +266,27 @@ def phase_k1(clouds, query_world, map_pts, fill, dev):
 
     q, t = clouds[1], clouds[0]
     vl_scan = t.mask.sum(dtype=torch.int32)
+    live = int(vl_scan)
     map_mask = torch.arange(map_pts.shape[0], device=dev) < fill
     vl_map = torch.tensor(fill, dtype=torch.int32, device=dev)
     gen = torch.Generator(device="cpu").manual_seed(0)
     rand_mask = (torch.rand(t.points.shape[0], generator=gen) < 0.7).to(dev) & t.mask
     far = torch.tensor([1000.0, -1000.0, 1000.0], device=dev)
+    grid, with_p, p_row = _grid_cloud(t)
+    far_q = q.points.clone()
+    far_q[3000] = torch.tensor([500.0, -400.0, 300.0], device=dev)
     cases = {
         "scan 8192x8192": (q.points, t.points, t.mask, vl_scan),
         "map 8192x262144": (query_world.points, map_pts, map_mask, vl_map),
         "masked 70%": (q.points, t.points, rand_mask, None),
         "all masked": (q.points, t.points, torch.zeros_like(t.mask), None),
         "1 km from origin": (q.points + far, t.points + far, t.mask, vl_scan),
+        "duplicates across tiles": (grid, grid, t.mask, vl_scan),
+        "target at the AABB bound": (with_p, grid, t.mask, vl_scan),
+        "valid_len mid-tile": (q.points, t.points, torch.ones_like(t.mask),
+                               torch.tensor(5037, dtype=torch.int32, device=dev)),
+        "one query 700 m away": (far_q, t.points, t.mask, None),
+        "ragged 7997x7001": (q.points[:7997], t.points[:7001], t.mask[:7001], None),
     }
     err = 0.0
     for name, (qq, tt, mm, vl) in cases.items():
@@ -211,20 +294,47 @@ def phase_k1(clouds, query_world, map_pts, fill, dev):
         k = nn.nn1_cuda(qq, tt, mm, vl)
         p = nn.nearest_neighbors_plain(qq, tt, mm, vl)
         torch.cuda.synchronize()
-        err = max(err, _compare_d2(f"nn1 {name}", k.dist2, p.dist2))
-        _compare_idx(f"nn1 {name}", qq, tt, k.idx, p.idx, p.dist2)
+        err = max(err, _equal(f"nn1 {name}", k.idx, k.dist2, p.idx, p.dist2))
         if name == "all masked" and not (torch.isinf(k.dist2).all() and (k.idx == 0).all()):
             raise AssertionError("nn1 all masked: expected inf / index 0")
-    times = {}
-    for name in ("scan 8192x8192", "map 8192x262144"):
+        if name == "target at the AABB bound":
+            # B (index 5) and A (index live - 2) tie at exactly 0.25 m², and
+            # tile 0's box lies exactly that far from P
+            c = qq.mean(0)
+            pc, tc = qq[p_row] - c, tt - c
+            d_a = float(nn._sqdist(tc[live - 2] - pc))
+            lo, hi = tc[:256].amin(0), tc[:256].amax(0)
+            gap = torch.clamp(torch.maximum(lo - pc, pc - hi), min=0.0)
+            lb2 = float(nn._sqdist(gap))
+            if not (int(p.idx[p_row]) == 5 and float(p.dist2[p_row]) == 0.25 == d_a == lb2):
+                raise AssertionError(f"nn1 AABB bound: not the tie at the bound ({int(p.idx[p_row])}, "
+                                     f"{float(p.dist2[p_row])}, {d_a}, {lb2})")
+        if name == "duplicates across tiles" and not (
+            int(k.idx[live - 5]) <= 7 and float(k.dist2[live - 5]) == 0.0
+        ):
+            raise AssertionError("nn1 duplicates: the lower index did not win")
+    out = {}
+    for name, n_live in (("scan 8192x8192", live), ("map 8192x262144", fill)):
         qq, tt, mm, vl = cases[name]
-        times[name] = (
-            _timed(lambda: nn.nn1_cuda(qq, tt, mm, vl)),
-            _timed(lambda: nn.nearest_neighbors_plain(qq, tt, mm, vl), iters=20),
-        )
-        print(f"[2] nn1 {name}: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms")
-    print(f"[2] nn1 matches its plain version on {len(cases)} cases, max |d2 err| {err:.3g}")
-    return err, times
+        qq, tt = qq.contiguous(), tt.contiguous()
+        n = qq.shape[0]
+        pairs = _pairs(lambda pr: nn.nn1_cuda(qq, tt, mm, vl, pairs=pr))
+        bound = _nn_bound(n, n_live, pairs, 8)
+        bound_all = _nn_bound(n, tt.shape[0], n * n_live, 8)
+        out[name] = {
+            "ms": _device_ms(lambda: nn.nn1_cuda(qq, tt, mm, vl)),
+            "plain_ms": _timed(lambda: nn.nearest_neighbors_plain(qq, tt, mm, vl), iters=20),
+            "pairs_share": pairs / (n * n_live),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_all_pairs_ms": bound_all[0],
+        }
+        r = out[name]
+        print(f"[2] nn1 {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; pairs "
+              f"evaluated {100 * r['pairs_share']:.2f}%; bound {bound[0]:.5f} ms ({bound[1]}), "
+              f"all pairs {bound_all[0]:.4f} ms")
+    print(f"[2] nn1 equals its plain version (d2 bits, indices) on {len(cases)} cases; "
+          f"max |d2 err| {err:.3g}")
+    return err, out
 
 
 def phase_k2(clouds, dev):
@@ -232,46 +342,83 @@ def phase_k2(clouds, dev):
 
     from icpslam_tpu_torch.ops import nn
 
-    c = clouds[0]
+    c, other = clouds[0], clouds[1]
     pts, mask = c.points.contiguous(), c.mask
-    k = 10
-    idx_k, d_k = nn.knn_cuda(pts, pts, mask, k)
-    idx_p, d_p = nn.knn_plain(pts, pts, mask, k)
-    torch.cuda.synchronize()
-    err = _compare_d2("knn self k=10", d_k, d_p)
-    live = mask.nonzero(as_tuple=True)[0]
-    if not (torch.equal(idx_k[live, 0], live) and (d_k[live, 0] == 0).all()):
-        raise AssertionError("knn: a live self-query must find itself first at d2 = 0")
-    _compare_idx("knn self k=10", pts, pts, idx_k, idx_p, d_p)
+    grid, with_p, p_row = _grid_cloud(c)
     few = torch.zeros_like(mask)
     few[:5] = True
-    idx_f, d_f = nn.knn_cuda(pts, pts, few, k)
-    idx_fp, d_fp = nn.knn_plain(pts, pts, few, k)
-    err = max(err, _compare_d2("knn 5 live", d_f, d_fp))
-    if not (torch.isinf(d_f[:, 5:]).all() and (idx_f[:, 5:] == 0).all()):
-        raise AssertionError("knn: missing neighbours must be inf with index 0")
-    ms = _timed(lambda: nn.knn_cuda(pts, pts, mask, k))
-    plain_ms = _timed(lambda: nn.knn_plain(pts, pts, mask, k), iters=20)
-    print(f"[3] knn self 8192 k=10: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-          f"max |d2 err| {err:.3g}")
-    return err, ms, plain_ms
+    far_q = other.points.clone()
+    far_q[3000] = torch.tensor([500.0, -400.0, 300.0], device=dev)
+    cases = {
+        "self k=10": (pts, pts, mask, 10),
+        "self k=16": (pts, pts, mask, 16),
+        "duplicates in the k-list": (grid, grid, mask, 10),
+        "5 live, k=10": (pts, pts, few, 10),
+        "all masked": (pts, pts, torch.zeros_like(mask), 10),
+        "one query 700 m away": (far_q.contiguous(), pts, mask, 10),
+        "ragged 7997x7001": (other.points[:7997].contiguous(), pts[:7001].contiguous(),
+                             mask[:7001], 10),
+        "AABB bound, k=1": (with_p, grid, mask, 1),
+    }
+    err = 0.0
+    for name, (qq, tt, mm, k) in cases.items():
+        idx_k, d_k = nn.knn_cuda(qq, tt, mm, k)
+        idx_p, d_p = nn.knn_plain(qq, tt, mm, k)
+        torch.cuda.synchronize()
+        err = max(err, _equal(f"knn {name}", idx_k, d_k, idx_p, d_p))
+        if name == "self k=10":
+            live = mm.nonzero(as_tuple=True)[0]
+            if not (torch.equal(idx_k[live, 0], live) and (d_k[live, 0] == 0).all()):
+                raise AssertionError("knn: a live self-query must find itself first at d2 = 0")
+        if name == "5 live, k=10" and not (torch.isinf(d_k[:, 5:]).all() and (idx_k[:, 5:] == 0).all()):
+            raise AssertionError("knn: missing neighbours must be inf with index 0")
+        if name == "duplicates in the k-list" and not int(((d_k[:, :-1] == d_k[:, 1:])
+                                                          & torch.isfinite(d_k[:, 1:])).sum()):
+            raise AssertionError("knn duplicates: no exact tie inside a k-list")
+        if name == "AABB bound, k=1" and int(idx_p[p_row, 0]) != 5:
+            raise AssertionError("knn AABB bound: the case is not the tie at index 5")
+    k = 10
+    n, live = pts.shape[0], int(mask.sum())
+    pairs = _pairs(lambda pr: nn.knn_cuda(pts, pts, mask, k, pairs=pr))
+    bound = _nn_bound(n, n, pairs, 8 * k)
+    bound_all = _nn_bound(n, n, n * live, 8 * k)
+    res = {
+        "ms": _device_ms(lambda: nn.knn_cuda(pts, pts, mask, k)),
+        "plain_ms": _timed(lambda: nn.knn_plain(pts, pts, mask, k), iters=20),
+        "pairs_share": pairs / (n * live),
+        "bound_ms": bound[0], "bound_by": bound[1], "bound_all_pairs_ms": bound_all[0],
+    }
+    print(f"[3] knn self 8192 k=10: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms; "
+          f"pairs evaluated {100 * res['pairs_share']:.2f}%; bound {bound[0]:.5f} ms "
+          f"({bound[1]}), all pairs {bound_all[0]:.4f} ms; "
+          f"equals its plain version on {len(cases)} cases; max |d2 err| {err:.3g}")
+    return err, res
 
 
 def _drive(source, cfg, poses, dev):
     """Run the port's runner loop with every kernel's launch count set to 0
-    just before it; the counts are read just after."""
+    just before it; the counts are read just after. K1's calls are also
+    split by target capacity: ``nn1_scan`` (a scan or keyframe cloud,
+    ``max_points``) and ``nn1_map`` (the map, ``max_map_points``)."""
     import torch
 
     from icpslam_tpu_torch.geometry.se3 import Pose
     from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.ops import nn
 
     stream, gt = source(cfg, poses, 10.0)
     init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in runner.KERNELS.values():
         fn.launches = 0
+    nn.nn1_cuda.launches_by_capacity.clear()
     res = runner.run_slam(stream, cfg, init, dev)
     launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
+    by_m = nn.nn1_cuda.launches_by_capacity
+    launches["nn1_scan"] = by_m.get(cfg.max_points, 0)
+    launches["nn1_map"] = by_m.get(cfg.max_map_points, 0)
+    if launches["nn1_scan"] + launches["nn1_map"] != launches["nn1"]:
+        raise AssertionError(f"K1 calls on other target capacities: {by_m}")
     peak = torch.cuda.max_memory_allocated(dev)
     summary = {**res.summary(), **runner.evaluate(res, gt)}
     if not torch.isfinite(torch.from_numpy(res.records[:, :7])).all():
@@ -306,7 +453,9 @@ def phase_slice(dev):
           f"{s['accepted']}/{n}, {s['optimizations']} optimizations, {s['keyframes']} keyframes")
     print(f"[5] ms/scan median {s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} "
           f"(first scan {s['first_step_ms']:.1f}); host syncs/scan {s['host_syncs_per_scan']:.2f}; "
-          f"K1 launches/scan {launches['nn1'] / n:.2f}, K2 {launches['knn'] / n:.2f}; "
+          f"K1 launches/scan {launches['nn1'] / n:.2f} (scan target "
+          f"{launches['nn1_scan'] / n:.2f}, map {launches['nn1_map'] / n:.2f}), "
+          f"K2 {launches['knn'] / n:.2f}; "
           f"peak memory {peak / 2**20:.1f} MiB")
     if s["accepted"] < 0.9 * n:
         raise AssertionError(f"only {s['accepted']}/{n} scans accepted")
@@ -376,7 +525,7 @@ def phase_k3(clouds, dev):
             inside = int(pl[0].sum())
         if name == "all masked" and any(bool(x.any()) for x in k):
             raise AssertionError("radius all masked: expected zeros")
-    ms = _timed(lambda: rs.radius_moments_cuda(pts, pts, mask, r, sigma))
+    ms = _device_ms(lambda: rs.radius_moments_cuda(pts, pts, mask, r, sigma))
     plain_ms = _timed(lambda: rs.radius_moments_plain(pts, pts, mask, r, sigma), iters=10)
     n, live = pts.shape[0], int(mask.sum())
     # 8 operations per live pair for d², then for each pair in radius one
@@ -384,9 +533,9 @@ def phase_k3(clouds, dev):
     # per query for the epilogue
     bound = _bound(8.0 * n * live + 20.0 * inside + 30.0 * n, 12 * n + 12 * n + n + 52 * n)
     print(f"[6] radius_moments self 8192, r {r}, sigma {sigma}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); {inside} pairs in radius; "
-          f"matches on {len(cases)} cases, max err {err:.3g}")
-    return err, ms, plain_ms, bound
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+          f"{inside} pairs in radius; matches on {len(cases)} cases, max err {err:.3g}")
+    return err, {"ms": ms, "plain_ms": plain_ms}, bound
 
 
 def phase_k4(clouds, query_world, map_pts, fill, dev):
@@ -427,13 +576,14 @@ def phase_k4(clouds, query_world, map_pts, fill, dev):
             raise AssertionError(f"nn1_matmul {name}: indices differ beyond the rounding")
         if ((sub_k - k1.dist2).abs() > tol)[fin].any():
             raise AssertionError(f"nn1_matmul {name}: its pick is not K1's within the rounding")
-        times[name] = (
-            _timed(lambda: nn.nn1_matmul_cuda(qq, tt, mm, vl)),
-            _timed(lambda: nn.nearest_neighbors_matmul_plain(qq, tt, mm, vl), iters=20),
-            _timed(lambda: nn.nn1_cuda(qq, tt, mm, vl)),
-        )
-        print(f"[7] nn1_matmul {name}: kernel {times[name][0]:.4f} ms, plain "
-              f"{times[name][1]:.4f} ms, K1 in the same call {times[name][2]:.4f} ms; "
+        times[name] = {
+            "ms": _device_ms(lambda: nn.nn1_matmul_cuda(qq, tt, mm, vl)),
+            "plain_ms": _timed(lambda: nn.nearest_neighbors_matmul_plain(qq, tt, mm, vl), iters=20),
+            "nn1_ms": _device_ms(lambda: nn.nn1_cuda(qq, tt, mm, vl)),
+        }
+        r = times[name]
+        print(f"[7] nn1_matmul {name}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, K1 in the same call {r['nn1_ms']:.4f} ms; "
               f"{int(differ.sum())} picks differ from the plain version")
     print(f"[7] nn1_matmul matches its plain version and K1 within the rounding, "
           f"max |d2 err| {err:.3g}")
@@ -468,7 +618,8 @@ def phase_mission(dev):
           f"{s['window_solves']} window and {s['full_solves']} full solves")
     print(f"[8] ms/scan median {s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} "
           f"(first scan {s['first_step_ms']:.1f}); host syncs/scan {s['host_syncs_per_scan']:.2f}; "
-          f"launches/scan K1 {per['nn1']:.2f}, K2 {per['knn']:.2f}, K3 {per['radius']:.2f}, "
+          f"launches/scan K1 {per['nn1']:.2f} (scan target {per['nn1_scan']:.2f}, map "
+          f"{per['nn1_map']:.2f}), K2 {per['knn']:.2f}, K3 {per['radius']:.2f}, "
           f"K4 {per['nn1_matmul']:.2f}; peak memory {peak / 2**20:.1f} MiB")
     rec = res.records
     loops = np.nonzero(rec[:, 13] > 0)[0]
@@ -507,56 +658,52 @@ def main(argv=None) -> int:
     phase_device_and_build()
     clouds, query_world, map_pts, fill = _main_path_clouds(dev)
     print(f"    main-path clouds: {[int(c.mask.sum()) for c in clouds]} live of 8192; map fill {fill}")
-    k1_err, k1_times = phase_k1(clouds, query_world, map_pts, fill, dev)
-    k2_err, k2_ms, k2_plain = phase_k2(clouds, dev)
+    k1_err, k1 = phase_k1(clouds, query_world, map_pts, fill, dev)
+    k2_err, k2 = phase_k2(clouds, dev)
     sentinel = phase_sentinel(dev)
     slice_summary, slice_launches = phase_slice(dev)
-    k3_err, k3_ms, k3_plain, k3_bound = phase_k3(clouds, dev)
+    k3_err, k3, k3_bound = phase_k3(clouds, dev)
     k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
     mission, mission_launches = phase_mission(dev)
     print(f"    all phases in {time.perf_counter() - t_start:.1f} s")
 
     n, live = 8192, int(clouds[0].mask.sum())
-    k1_bound = _nn_bound(n, n, live, 8)
-    k1_map_bound = _nn_bound(n, map_pts.shape[0], fill, 8)
-    print(f"    bounds: K1 {k1_bound[0]:.4f} ms at 8192 x {live} live, "
-          f"{k1_map_bound[0]:.4f} ms at 8192 x {fill} map fill ({k1_map_bound[1]})")
-    k2_bound = _nn_bound(n, n, live, 80)
-    k4_bound = _nn_bound(n, n, live, 8)
+    k4_bound = _nn_bound(n, n, n * live, 8)
     slice_path = f"kitti_config slice, {slice_summary['scans']} scans (phase 5)"
     mission_path = f"radius mission, {mission['scans']} scans (phase 8)"
+    scan, mapq = k1["scan 8192x8192"], k1["map 8192x262144"]
+    k4 = k4_times["scan 8192x8192"]
     kernels = [
         {"name": "nn1", "route": "cuda", "source": "icpslam_tpu_torch/csrc/nn1.cu",
          "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:309",
          "launches": mission_launches["nn1"], "path": mission_path,
-         "max_abs_err": k1_err, "ms": k1_times["scan 8192x8192"][0],
-         "plain_ms": k1_times["scan 8192x8192"][1], "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "max_abs_err": k1_err, "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"], "library_ms": None,
+         "bound_all_pairs_ms": scan["bound_all_pairs_ms"], "pairs_share": scan["pairs_share"],
+         "launches_scan_target": mission_launches["nn1_scan"],
+         "launches_map_target": mission_launches["nn1_map"],
+         "map": {**mapq, "fill": fill}},
         {"name": "knn", "route": "cuda", "source": "icpslam_tpu_torch/csrc/knn.cu",
          "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:450",
          "launches": slice_launches["knn"], "path": slice_path,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "max_abs_err": k2_err, "library_ms": None, **k2},
         {"name": "radius_moments", "route": "cuda",
          "source": "icpslam_tpu_torch/csrc/radius_moments.cu",
          "replaces": "icpslam_tpu/ops/pallas/radius_stats_kernel.py:69",
          "launches": mission_launches["radius"], "path": mission_path,
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": None},
+         "max_abs_err": k3_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
         {"name": "nn1_matmul", "route": "cuda", "source": "icpslam_tpu_torch/csrc/nn1_matmul.cu",
          "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:123",
          "launches": mission_launches["nn1_matmul"],
          "path": "none: no path of slam_step calls it (nor in JAX)",
-         "max_abs_err": k4_err, "ms": k4_times["scan 8192x8192"][0],
-         "plain_ms": k4_times["scan 8192x8192"][1], "bound_ms": k4_bound[0],
-         "bound_by": k4_bound[1], "library_ms": None},
+         "max_abs_err": k4_err, "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
     ]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({
                 "kernels": kernels,
-                "nn1_map_ms": k1_times["map 8192x262144"],
-                "nn1_map_bound": k1_map_bound,
                 "nn1_matmul_vs_nn1_ms": k4_times,
                 "sentinel": sentinel, "slice": slice_summary,
                 "slice_launches": slice_launches, "mission": mission,

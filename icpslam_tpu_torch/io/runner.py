@@ -11,8 +11,8 @@ loads the whole ``SlamConfig`` from YAML instead (PyYAML is needed only
 then), as the JAX runner's flag does. The run prints ATE/RPE against the
 ground truth and a one-line JSON summary, including the host syncs and
 kernel launches per scan and the window and full graph solves.
-``--device cuda`` (the default when a card is present) never falls back
-to the CPU.
+``--device`` defaults to ``cuda`` and fails without a card; the CPU runs
+only with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -186,14 +186,18 @@ def main(argv=None) -> int:
     ap.add_argument("--poses", type=int, default=40)
     ap.add_argument("--rate", type=float, default=10.0)
     ap.add_argument(
-        "--device", default="cuda" if torch.cuda.is_available() else "cpu",
-        help="torch device (default: cuda when available)",
+        "--device", default="cuda",
+        help="torch device (default: cuda, which fails without a card; "
+        "the CPU needs --device cpu)",
     )
     ap.add_argument("--summary-out", type=str, default=None)
     args = ap.parse_args(argv)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("--device cuda requested but torch.cuda.is_available() is False")
+        raise SystemExit(
+            f"--device {args.device}: torch.cuda.is_available() is False; "
+            "pass --device cpu to run on the CPU"
+        )
     if args.kitti_proxy:
         if not args.no_proxy_physics:
             raise NotImplementedError(

@@ -25,6 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("nn1.cu", "knn.cu", "radius_moments.cu", "nn1_matmul.cu")
+HEADERS = ("nn_tiles.cuh",)  # included by nn1.cu and knn.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -47,7 +49,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -97,10 +99,12 @@ def load() -> ctypes.CDLL:
     load.build_seconds = time.perf_counter() - t0
     load.log = log
     lib = ctypes.CDLL(str(out))
-    lib.icpslam_nn1.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P]
+    lib.icpslam_nn1.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _L, _P, _P, _P, _P]
     lib.icpslam_nn1.restype = _I
-    lib.icpslam_knn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+    lib.icpslam_knn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P, _L, _P, _P, _P, _P]
     lib.icpslam_knn.restype = _I
+    lib.icpslam_nn_scratch_floats.argtypes = [_I]
+    lib.icpslam_nn_scratch_floats.restype = _L
     lib.icpslam_radius_moments.argtypes = [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P]
     lib.icpslam_radius_moments.restype = _I
     lib.icpslam_nn1_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P]

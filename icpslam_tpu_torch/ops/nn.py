@@ -11,10 +11,11 @@ Each public function dispatches on the device of its tensors:
   :func:`nearest_neighbors_matmul_plain`).
 
 K1 and K2 compute the subtraction-form ``Σ_c (t_c − q_c)²`` in float32
-on coordinates centred on the query centroid, so kernel and plain version
-agree bit-for-bit on distances and differ only in which of two exactly
-tied targets they pick. K4 is the matmul form ``|t|² − 2 t·q + |q|²`` of
-the JAX v1 kernel, which no path of ``slam_step`` calls.
+on coordinates centred on the query centroid and order results by (d²,
+index), so kernel and plain version agree bit for bit on distances and
+exactly on indices, exact ties included (the lowest index wins). K4 is
+the matmul form ``|t|² − 2 t·q + |q|²`` of the JAX v1 kernel, which no
+path of ``slam_step`` calls.
 JAX's TPU tile constraint (``pick_tiles``) has no counterpart: the kernels
 take any N and M and mask the ragged edge themselves.
 """
@@ -82,13 +83,15 @@ def nearest_neighbors(
     valid_len: Optional[torch.Tensor] = None,
     prune_beyond: Optional[float] = None,
 ) -> NNResult:
-    """Exact 1-NN of each query among the masked targets.
+    """Exact 1-NN of each query among the masked targets; an exact tie
+    goes to the lowest index, and no live target gives index 0, d² = inf.
 
     ``valid_len``: 0-d int32 tensor, the live-prefix length of a
     fixed-capacity target buffer (targets past it must be masked too); it
     stays on the device and the kernel reads it there. ``prune_beyond``
     is the JAX contract's don't-care radius; both versions ignore it and
-    are exact everywhere, which the contract allows.
+    are exact everywhere, which the contract allows (the kernel's tile
+    skip is exact without it).
     """
     del prune_beyond
     dev = _check(query, target, target_mask, valid_len)
@@ -127,36 +130,60 @@ def nearest_neighbors_plain(query, target, target_mask, valid_len=None) -> NNRes
     )
 
 
-def nn1_cuda(query, target, target_mask, valid_len=None) -> NNResult:
+def _scratch(lib, m: int, dev) -> torch.Tensor:
+    """The staged target tiles and their AABBs, written by the kernels'
+    prologue (``csrc/nn_tiles.cuh``)."""
+    return torch.empty(int(lib.icpslam_nn_scratch_floats(m)), dtype=torch.float32, device=dev)
+
+
+def _pairs_ptr(pairs: Optional[torch.Tensor], dev):
+    if pairs is None:
+        return None
+    if pairs.device != dev or pairs.dtype != torch.int64 or pairs.numel() != 1:
+        raise ValueError("pairs must be a one-element int64 tensor on the queries' device")
+    return pairs.data_ptr()
+
+
+def nn1_cuda(query, target, target_mask, valid_len=None, pairs=None) -> NNResult:
     """Launch K1 (``csrc/nn1.cu``) on the current stream.
 
     Replaces ``icpslam_tpu/ops/pallas/nn_kernel.py::nearest_neighbors_pallas3``.
-    Bound on the H100 by FP32 issue and shared-memory reads; the design
-    (one thread per query, shared-memory target tiles, register argmin,
-    a valid_len stop read from device memory) is described in the source.
-    ``nn1_cuda.launches`` counts the kernel launches.
+    Bound on the H100 by the FP32 instruction rate. One call launches a
+    prologue that stages the targets in tiles with their AABBs and the
+    search kernel: 8 lanes per query, tiles swept only where some query's
+    AABB distance does not exceed its best, results as (d², index) keys
+    (see the sources). ``valid_len`` is read from device memory.
+    ``nn1_cuda.launches`` counts calls. ``pairs`` (a one-element int64
+    CUDA tensor, or None) is incremented by the (query, live target)
+    pairs the search evaluated.
     """
     dev = _check(query, target, target_mask, valid_len, need_contiguous=True)
     if dev.type != "cuda":
         raise ValueError("nn1_cuda takes CUDA tensors")
+    pairs_ptr = _pairs_ptr(pairs, dev)
     lib = cuda_build.load()
     n, m = query.shape[0], target.shape[0]
     center = query.mean(0).contiguous()
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     if n:
+        scratch = _scratch(lib, m, dev)
         code = lib.icpslam_nn1(
             query.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
             None if valid_len is None else valid_len.data_ptr(),
-            center.data_ptr(), n, m, idx.data_ptr(), d2.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            center.data_ptr(), n, m, scratch.data_ptr(), scratch.numel(), pairs_ptr,
+            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         cuda_build.check(code, "icpslam_nn1")
         nn1_cuda.launches += 1
+        by_m = nn1_cuda.launches_by_capacity
+        by_m[m] = by_m.get(m, 0) + 1
     return NNResult(idx=idx.long(), dist2=d2)
 
 
 nn1_cuda.launches = 0
+# the same calls by target capacity (a scan's max_points, the map's max_map_points)
+nn1_cuda.launches_by_capacity = {}
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +199,9 @@ def knn(
     """Exact k-NN: ``(idx (N, k) int64, dist2 (N, k))``, ascending.
 
     Where fewer than k live targets exist the trailing entries have
-    ``dist2 = inf`` and index 0 (``knn_pallas``'s contract). JAX takes
-    this through an XLA (approximate on TPU) top-k; the port is exact.
+    ``dist2 = inf`` and index 0 (``knn_pallas``'s contract). Exact ties
+    keep ascending index order. JAX takes this through an XLA
+    (approximate on TPU) top-k; the port is exact.
     """
     if not 1 <= k <= KNN_MAX_K:
         raise ValueError(f"k must be in [1, {KNN_MAX_K}], got {k}")
@@ -183,8 +211,18 @@ def knn(
     return knn_plain(query, target, target_mask, k)
 
 
+def _smallest_k(d2: torch.Tensor, k: int):
+    """The k smallest entries of each row in (d², index) order. d² ≥ 0, so
+    its float32 bits order as integers do, and ``bits << 32 | index`` is a
+    unique key: ``topk`` over the keys has no ties to order arbitrarily."""
+    col = torch.arange(d2.shape[1], device=d2.device)
+    key = (d2.view(torch.int32).to(torch.int64) << 32) | col
+    vals = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    return (vals >> 32).to(torch.int32).view(torch.float32), vals & 0xFFFFFFFF
+
+
 def knn_plain(query, target, target_mask, k: int):
-    """The plain PyTorch version of K2 (blocked d² + ``topk``)."""
+    """The plain PyTorch version of K2 (blocked d² + ``topk`` of (d², index) keys)."""
     _check(query, target, target_mask)
     n, m = query.shape[0], target.shape[0]
     center = query.mean(0)
@@ -197,7 +235,7 @@ def knn_plain(query, target, target_mask, k: int):
         d2 = torch.where(target_mask[None, :], d2, _INF)
         if m < k:
             d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - m), _INF)], 1)
-        vals, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+        vals, idx = _smallest_k(d2, k)
         idx_parts.append(idx)
         d2_parts.append(vals)
     idx = torch.cat(idx_parts) if idx_parts else torch.zeros((0, k), dtype=torch.int64)
@@ -206,29 +244,33 @@ def knn_plain(query, target, target_mask, k: int):
     return torch.where(found, idx, torch.zeros_like(idx)), d2
 
 
-def knn_cuda(query, target, target_mask, k: int):
+def knn_cuda(query, target, target_mask, k: int, pairs=None):
     """Launch K2 (``csrc/knn.cu``) on the current stream.
 
-    Replaces ``icpslam_tpu/ops/pallas/nn_kernel.py::knn_pallas``: one sweep
-    with a per-query sorted k-list in registers instead of k exclusion
-    passes. Bound by FP32 issue like K1. ``knn_cuda.launches`` counts
-    the kernel launches.
+    Replaces ``icpslam_tpu/ops/pallas/nn_kernel.py::knn_pallas``: one
+    sweep with per-lane k-lists of (d², index) keys in registers instead
+    of k exclusion passes, on K1's tiles and AABB skip (against each
+    query's k-th best), the lanes' lists merged at the end. Bound by the
+    FP32 instruction rate like K1. ``knn_cuda.launches`` counts calls
+    (prologue and search); ``pairs`` as in :func:`nn1_cuda`.
     """
     dev = _check(query, target, target_mask, need_contiguous=True)
     if dev.type != "cuda":
         raise ValueError("knn_cuda takes CUDA tensors")
     if not 1 <= k <= KNN_MAX_K:
         raise ValueError(f"k must be in [1, {KNN_MAX_K}], got {k}")
+    pairs_ptr = _pairs_ptr(pairs, dev)
     lib = cuda_build.load()
     n, m = query.shape[0], target.shape[0]
     center = query.mean(0).contiguous()
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((n, k), dtype=torch.float32, device=dev)
     if n:
+        scratch = _scratch(lib, m, dev)
         code = lib.icpslam_knn(
             query.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
-            center.data_ptr(), n, m, k, idx.data_ptr(), d2.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            center.data_ptr(), n, m, k, scratch.data_ptr(), scratch.numel(), pairs_ptr,
+            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         cuda_build.check(code, "icpslam_knn")
         knn_cuda.launches += 1

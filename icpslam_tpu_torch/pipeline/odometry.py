@@ -19,6 +19,7 @@ from icpslam_tpu_torch.geometry import se3
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.ops import covariance as cov_ops
 from icpslam_tpu_torch.ops import icp as icp_ops
+from icpslam_tpu_torch.utils.device import resolve as resolve_device
 
 
 def compute_covariances(cloud: pc.PointCloud, icfg) -> torch.Tensor:
@@ -62,6 +63,9 @@ class OdometryOutput(NamedTuple):
 
 
 def init_state(config, initial_pose: Pose | None = None, device=None) -> OdometryState:
+    """The empty odometry state on ``device`` (default: the CUDA card;
+    raises without one — pass ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
     if initial_pose is None:
         initial_pose = se3.identity(device=device)
     n = config.max_points

@@ -30,6 +30,7 @@ from icpslam_tpu_torch.mapping import scan_to_map
 from icpslam_tpu_torch.ops import icp as icp_ops
 from icpslam_tpu_torch.pipeline import odometry as odo
 from icpslam_tpu_torch.pipeline import robot_odometry as robot_odo
+from icpslam_tpu_torch.utils.device import resolve as resolve_device
 from icpslam_tpu_torch.utils.sync import to_host
 
 
@@ -90,7 +91,10 @@ def check_supported(config) -> None:
 
 
 def init_state(config, initial_pose: Optional[Pose] = None, device=None) -> SlamState:
+    """The empty SLAM state on ``device`` (default: the CUDA card; raises
+    without one — pass ``device="cpu"`` for the CPU)."""
     check_supported(config)
+    device = resolve_device(device)
     i32 = torch.int32
     return SlamState(
         odom=odo.init_state(config, initial_pose, device=device),

@@ -22,6 +22,7 @@ from icpslam_tpu_torch.mapping.point_map import PointMap
 from icpslam_tpu_torch.pipeline.odometry import OdometryState
 from icpslam_tpu_torch.pipeline.robot_odometry import RobotOdometryState
 from icpslam_tpu_torch.pipeline.slam import SlamState
+from icpslam_tpu_torch.utils.device import resolve as resolve_device
 
 # the port's NamedTuple type for each field that holds one
 _FIELD_TYPES = {
@@ -57,8 +58,9 @@ def _build(cls, tree, device):
 
 def state_from_numpy(tree: Any, device=None) -> SlamState:
     """The port's ``SlamState`` from the JAX state as NamedTuples of numpy
-    arrays, matched field by field by name (point-map backend)."""
-    return _build(SlamState, tree, device)
+    arrays, matched field by field by name (point-map backend), on
+    ``device`` (default: the CUDA card; raises without one)."""
+    return _build(SlamState, tree, resolve_device(device))
 
 
 def state_to_numpy(state: Any) -> Any:

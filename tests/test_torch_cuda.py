@@ -6,11 +6,14 @@ package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-Shapes are ragged on purpose (N not a multiple of the 64-thread block, M
-not a multiple of the 256-point tile). Tolerances:
-- K1/K2 d²: 1e-6 abs + 1e-6 rel — kernel and plain version evaluate the
-  same subtraction form in float32 on query-centred coordinates, without
-  FMA contraction;
+Shapes are ragged on purpose (N not a multiple of a warp's queries, M
+not a multiple of the 256-point tile). K1 and K2 also meet the cases that
+their tile skip must get right: voxel-sorted slab clouds (where the skip
+fires), exact duplicates in different tiles, a query far from every
+target, and a target exactly at the AABB-bound distance. Tolerances:
+- K1/K2: d² equal bit for bit and indices equal — kernel and plain
+  version evaluate the same subtraction form in float32 on query-centred
+  coordinates, without FMA contraction, and order by (d², index);
 - K3 (radius moments): the hard count exactly (membership is decided on
   the same float32 d² in both), count/mean/cov within 1e-5 abs + 1e-5 rel
   (the sums are reduced in another order);
@@ -23,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from icpslam_tpu_torch.cloud.pointcloud import PointCloud
+from icpslam_tpu_torch.cloud.voxel import voxel_downsample
 from icpslam_tpu_torch.ops import nn as tnn
 from icpslam_tpu_torch.ops import radius_stats as trs
 
@@ -41,40 +46,153 @@ def _cloud(seed, n, live=1.0):
     return torch.from_numpy(pts), torch.from_numpy(mask)
 
 
+def _slab_cloud(seed, n_raw, cap, grid=False):
+    """A voxel-filtered cloud (0.4 m leaves, sorted by the x-major voxel
+    key, so consecutive rows are thin x-slabs) in a 40 × 40 × 4 m box, its
+    live rows a prefix of ``cap``; ``grid`` rounds it to 0.25 m, which with
+    a power-of-two row count keeps every centred coordinate exact."""
+    rng = np.random.RandomState(seed)
+    pts = (rng.rand(n_raw, 3) * [40, 40, 4] - [20, 20, 2]).astype(np.float32)
+    filt, _ = voxel_downsample(
+        PointCloud(torch.from_numpy(pts), torch.ones(n_raw, dtype=torch.bool)), 0.4, cap
+    )
+    p = torch.round(filt.points * 4) / 4 if grid else filt.points
+    return p.clone(), filt.mask.clone()
+
+
+def _with_duplicates(pts, mask):
+    """Copies of low-index live rows over live rows near the end."""
+    live = int(mask.sum())
+    pts[live - 3 - 5 * torch.arange(20)] = pts[3 + 29 * torch.arange(20)]
+    return pts
+
+
+def _aabb_bound(pts, mask, p_row):
+    """Queries = ``pts`` with row ``p_row`` replaced by P, 50 m above the
+    cloud, whose only neighbours are B (row 5, tile 0) and A (row live − 2,
+    the last tile), both exactly 0.5 m away; tile 0's box lies exactly 0.5 m
+    from P and the search reaches A's tile first, so only an inclusive
+    skip test gives B."""
+    live = int(mask.sum())
+    x0 = float(pts[:256, 0].max()) + 1.0
+    y0 = float(pts[0, 1])
+    z0 = float(pts[:live, 2].max()) + 50.0
+    pts[5] = torch.tensor([x0 - 0.5, y0, z0])
+    pts[live - 2] = torch.tensor([x0 + 0.5, y0, z0])
+    q = pts.clone()
+    q[p_row] = torch.tensor([x0, y0, z0])
+    return q, pts
+
+
+def _nn1_case(case):
+    """(q, t, mask, valid_len) on the CPU for a test_nn1_matches_plain case."""
+    vl = None
+    if case in ("random", "valid_len 0", "valid_len 700"):
+        q, _ = _cloud(1, 1000)
+        t, mask = _cloud(2, 1300, live=0.8)
+        if case != "random":
+            vl = int(case.split()[1])
+            mask[vl:] = False
+    elif case == "slab clouds":
+        q, _ = _slab_cloud(8, 1200, 1300)
+        t, mask = _slab_cloud(9, 1100, 1250)
+    elif case == "duplicates across tiles":
+        t, mask = _slab_cloud(10, 1200, 1300, grid=True)
+        t = _with_duplicates(t, mask)
+        q = t.clone()
+    elif case == "one query far away":
+        q, _ = _slab_cloud(8, 1200, 1300)
+        t, mask = _slab_cloud(9, 1100, 1250)
+        q[500] = torch.tensor([500.0, -400.0, 300.0])
+    elif case == "target at the AABB bound":
+        t, mask = _slab_cloud(11, 950, 1024, grid=True)
+        q, t = _aabb_bound(t, mask, 600)
+    elif case == "all masked":
+        q, _ = _cloud(1, 1000)
+        t, mask = _cloud(2, 1300)
+        mask[:] = False
+    return q, t, mask, vl
+
+
+NN1_CASES = ["random", "valid_len 0", "valid_len 700", "slab clouds", "duplicates across tiles",
+             "one query far away", "target at the AABB bound", "all masked"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("valid_len", [None, 0, 700])
-def test_nn1_matches_plain(dev, valid_len):
-    q, _ = _cloud(1, 1000)
-    t, mask = _cloud(2, 1300, live=0.8)
-    if valid_len is not None:
-        mask[valid_len:] = False
+@pytest.mark.parametrize("case", NN1_CASES)
+def test_nn1_matches_plain(dev, case):
+    q, t, mask, vl = _nn1_case(case)
     q, t, mask = q.to(dev), t.to(dev), mask.to(dev)
-    vl = None if valid_len is None else torch.tensor(valid_len, dtype=torch.int32, device=dev)
+    vl = None if vl is None else torch.tensor(vl, dtype=torch.int32, device=dev)
     before = tnn.nn1_cuda.launches
     k = tnn.nearest_neighbors(q, t, mask, valid_len=vl)
     p = tnn.nearest_neighbors_plain(q, t, mask, vl)
     torch.cuda.synchronize()
     assert tnn.nn1_cuda.launches == before + 1
-    torch.testing.assert_close(k.dist2, p.dist2, rtol=1e-6, atol=1e-6)
+    assert torch.equal(k.dist2.view(torch.int32), p.dist2.view(torch.int32))
+    assert torch.equal(k.idx, p.idx)
     fin = torch.isfinite(p.dist2)
-    assert torch.equal(k.idx[fin], p.idx[fin])
     assert torch.equal(k.idx[~fin], torch.zeros_like(k.idx[~fin]))
+    if case == "target at the AABB bound":
+        assert int(p.idx[600]) == 5 and float(p.dist2[600]) == 0.25
+    if case == "duplicates across tiles":
+        live = int(mask.sum())
+        assert int(k.idx[live - 3]) <= 3 and float(k.dist2[live - 3]) == 0.0
+
+
+def _knn_case(case):
+    """(q, t, mask) on the CPU for a test_knn_matches_plain case."""
+    if case == "random":
+        t, mask = _cloud(3, 1100, live=0.9)
+        return t, t, mask
+    if case == "slab self":
+        t, mask = _slab_cloud(12, 1200, 1300)
+        return t, t, mask
+    if case == "duplicates in the k-list":
+        t, mask = _slab_cloud(10, 1200, 1300, grid=True)
+        t = _with_duplicates(t, mask)
+        return t, t, mask
+    if case == "one query far away":
+        t, mask = _slab_cloud(12, 1200, 1300)
+        q, _ = _slab_cloud(13, 1000, 1100)
+        q[70] = torch.tensor([500.0, -400.0, 300.0])
+        return q, t, mask
+    if case == "5 live":
+        t, mask = _slab_cloud(12, 1200, 1300)
+        mask[5:] = False
+        return t, t, mask
+    if case == "target at the AABB bound":
+        t, mask = _slab_cloud(11, 950, 1024, grid=True)
+        q, t = _aabb_bound(t, mask, 600)
+        return q, t, mask
+    raise ValueError(case)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 10, 16])
-def test_knn_matches_plain(dev, k):
-    pts, mask = _cloud(3, 1100, live=0.9)
-    pts, mask = pts.to(dev), mask.to(dev)
+@pytest.mark.parametrize("case, k", [
+    ("random", 1), ("random", 10), ("random", 16), ("slab self", 10),
+    ("duplicates in the k-list", 10), ("one query far away", 10), ("5 live", 10),
+    ("target at the AABB bound", 1),
+])
+def test_knn_matches_plain(dev, case, k):
+    q, t, mask = _knn_case(case)
+    q, t, mask = q.to(dev), t.to(dev), mask.to(dev)
     before = tnn.knn_cuda.launches
-    ki, kd = tnn.knn(pts, pts, mask, k)
-    pi, pd = tnn.knn_plain(pts, pts, mask, k)
+    ki, kd = tnn.knn(q, t, mask, k)
+    pi, pd = tnn.knn_plain(q, t, mask, k)
     torch.cuda.synchronize()
     assert tnn.knn_cuda.launches == before + 1
-    torch.testing.assert_close(kd, pd, rtol=1e-6, atol=1e-6)
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
     assert torch.equal(ki, pi)
-    live = mask.nonzero(as_tuple=True)[0]
-    assert torch.equal(ki[live, 0], live) and bool((kd[live, 0] == 0).all())
+    if case in ("random", "slab self"):
+        live = mask.nonzero(as_tuple=True)[0]
+        assert torch.equal(ki[live, 0], live) and bool((kd[live, 0] == 0).all())
+    if case == "duplicates in the k-list":
+        assert bool(((kd[:, :-1] == kd[:, 1:]) & torch.isfinite(kd[:, 1:])).any())
+    if case == "5 live":
+        assert bool(torch.isinf(kd[:, 5:]).all()) and bool((ki[:, 5:] == 0).all())
+    if case == "target at the AABB bound":
+        assert int(pi[600, 0]) == 5
 
 
 @pytest.mark.cuda

@@ -208,6 +208,23 @@ def test_knn_matches_jax(k, ref):
     assert np.all(np.diff(d2, axis=1) >= 0)
 
 
+def test_exact_ties_go_to_the_lowest_index():
+    # duplicates at both ends of the target array: the plain versions
+    # (which the kernels match exactly) order exact ties by index
+    rng = np.random.RandomState(21)
+    t = rng.randn(300, 3).astype(np.float32)
+    t[250:] = t[:50]
+    q = t[[260, 10, 120]] + np.float32(0.0)
+    mask = np.ones(300, bool)
+    idx, d2 = _port_nn(q, t, mask)
+    np.testing.assert_array_equal(idx, [10, 10, 120])
+    np.testing.assert_array_equal(d2, 0.0)
+    kidx, kd2 = _port_knn(q, t, mask, 4)
+    np.testing.assert_array_equal(kidx[:2, :2], [[10, 260], [10, 260]])
+    np.testing.assert_array_equal(kd2[:2, :2], 0.0)
+    assert np.all(np.diff(kd2, axis=1) >= 0)
+
+
 def test_knn_self_query_and_fewer_live_than_k():
     rng = np.random.RandomState(20)
     pts = rng.randn(512, 3).astype(np.float32)

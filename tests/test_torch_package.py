@@ -22,7 +22,9 @@ from icpslam_tpu_torch.graph import pose_graph as tpg
 from icpslam_tpu_torch.io import runner as trunner
 from icpslam_tpu_torch.io import synthetic as tsyn
 from icpslam_tpu_torch.ops import cuda_build, nn as tnn, radius_stats as trs
+from icpslam_tpu_torch.pipeline import odometry as todo
 from icpslam_tpu_torch.pipeline import slam as tslam
+from icpslam_tpu_torch.utils import interop
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "icpslam_tpu_torch"
@@ -212,7 +214,7 @@ _OUT_OF_SLICE = {
 def test_out_of_slice_config_raises(name):
     cfg = tconfig.tiny_config(**_OUT_OF_SLICE[name])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tslam.init_state(cfg)
+        tslam.init_state(cfg, device="cpu")
 
 
 def _room_scans(cfg, n):
@@ -228,7 +230,7 @@ def _room_scans(cfg, n):
 def test_full_keyframe_store_marginalization_raises():
     cfg = tconfig.tiny_config(max_keyframes=2, keyframe_distance=0.1, max_points=512,
                               enable_loop_closure=False)
-    state = tslam.init_state(cfg)
+    state = tslam.init_state(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="marginali"):
         for scan in _room_scans(cfg, 4):
             state, _ = tslam.slam_step(state, scan, cfg)
@@ -238,14 +240,14 @@ def test_full_keyframe_store_marginalization_raises():
 def test_radius_config_initialises(stage):
     radius = tconfig.IcpConfig(covariance_mode="radius", covariance_radius=0.6)
     cfg = tconfig.tiny_config(**{stage: radius})
-    state = tslam.init_state(cfg)
+    state = tslam.init_state(cfg, device="cpu")
     assert int(state.keyframes.count) == 0
 
 
 def test_incremental_window_solve_runs():
     cfg = tconfig.tiny_config(graph_window=2, keyframes_window=3, keyframe_distance=0.1,
                               max_points=512, enable_loop_closure=False)
-    state = tslam.init_state(cfg)
+    state = tslam.init_state(cfg, device="cpu")
     calls = tpg.optimize_window.calls
     for scan in _room_scans(cfg, 4):
         state, out = tslam.slam_step(state, scan, cfg)
@@ -265,6 +267,30 @@ def test_bucket_resolving_to_pcg_raises():
         )
     assert tpg.bucket_size(30, 40, 512, 2048, 64) == 64
     assert tpg.bucket_size(30, 300, 512, 2048, 64) == 128
+
+
+@pytest.mark.parametrize(
+    "entry", ["slam.init_state", "odometry.init_state", "interop.state_from_numpy", "runner CLI"]
+)
+def test_entry_points_default_to_the_card(entry):
+    """Without a named device the port's entry points take the CUDA card,
+    and on a machine without one they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    cfg = tconfig.tiny_config()
+    if entry == "runner CLI":
+        with pytest.raises(SystemExit, match="--device cpu"):
+            trunner.main(["--synthetic", "--poses", "2"])
+        return
+    calls = {
+        "slam.init_state": lambda: tslam.init_state(cfg),
+        "odometry.init_state": lambda: todo.init_state(cfg),
+        "interop.state_from_numpy": lambda: interop.state_from_numpy(
+            interop.state_to_numpy(tslam.init_state(cfg, device="cpu"))
+        ),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
 
 
 def test_runner_physics_proxy_raises():

@@ -63,13 +63,14 @@ def mission():
                                   max_range=12.0, n_points=1000, noise=0.01, seed=1))
     step = jax.jit(jslam.slam_step, static_argnums=(2,))
     j_state = jslam.init_state(CFG, initial_pose=jse3.Pose(t=gt_t[0], q=gt_q[0]))
-    free = tslam.init_state(CFG, initial_pose=Pose(torch.tensor(gt_t[0]), torch.tensor(gt_q[0])))
+    free = tslam.init_state(CFG, initial_pose=Pose(torch.tensor(gt_t[0]), torch.tensor(gt_q[0])),
+                           device="cpu")
     rec = {"jax": [], "step": [], "free": []}
     states = []
     for pts, mask in scans:
         shared_np = jax.tree_util.tree_map(np.asarray, j_state)
         states.append(shared_np)
-        shared = interop.state_from_numpy(shared_np)
+        shared = interop.state_from_numpy(shared_np, device="cpu")
         port_scan = tpc.PointCloud(torch.tensor(pts), torch.tensor(mask))
         j_state, jo = step(j_state, jpc.PointCloud(points=pts, mask=mask), CFG)
         _, so = tslam.slam_step(shared, port_scan, CFG)
@@ -115,7 +116,7 @@ def test_free_run_pose(mission):
 def test_state_round_trip(mission):
     _, states = mission
     tree = states[-1]
-    back = interop.state_to_numpy(interop.state_from_numpy(tree))
+    back = interop.state_to_numpy(interop.state_from_numpy(tree, device="cpu"))
     flat_a = jax.tree_util.tree_leaves(tree)
     flat_b = jax.tree_util.tree_leaves(back)
     assert len(flat_a) == len(flat_b)

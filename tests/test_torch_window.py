@@ -204,11 +204,12 @@ def mission():
                                   max_range=12.0, n_points=1000, noise=0.01, seed=1))
     step = jax.jit(jslam.slam_step, static_argnums=(2,))
     j_state = jslam.init_state(CFG, initial_pose=jse3.Pose(t=gt_t[0], q=gt_q[0]))
-    free = tslam.init_state(TCFG, initial_pose=Pose(torch.tensor(gt_t[0]), torch.tensor(gt_q[0])))
+    free = tslam.init_state(TCFG, initial_pose=Pose(torch.tensor(gt_t[0]), torch.tensor(gt_q[0])),
+                           device="cpu")
     rec = {"jax": [], "step": [], "free": []}
     port_kinds = {}
     for k, (pts, mask) in enumerate(scans):
-        shared = interop.state_from_numpy(jax.tree_util.tree_map(np.asarray, j_state))
+        shared = interop.state_from_numpy(jax.tree_util.tree_map(np.asarray, j_state), device="cpu")
         port_scan = tpc.PointCloud(torch.tensor(pts), torch.tensor(mask))
         j_state, jo = step(j_state, jpc.PointCloud(points=pts, mask=mask), CFG)
         _, so = tslam.slam_step(shared, port_scan, TCFG)
