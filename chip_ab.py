@@ -12,16 +12,27 @@ checkout's kernels, then measures, with this checkout's ``chip_smoke.py``
 timers and inputs:
 
 - K1 (``nn1_cuda``) on the scan target (8192 × 8192) and the map target
-  (8192 × 262,144 at ~22k fill), and K2 (``knn_cuda``, self k = 10), at the
-  shapes of ``chip_smoke.py`` phases 2-3: device ms per call (``_device_ms``)
-  and CUDA events around single calls (``_timed``);
+  (8192 × 262,144 at ~22k fill), K2 (``knn_cuda``, self k = 10), K3
+  (``radius_moments_cuda``, self 8192, r = 1.0 m, taper σ = 0.5 m and the
+  hard cutoff) and K4 (``nn1_matmul_cuda``, the scan and the map cases), at
+  the shapes of ``chip_smoke.py`` phases 2-3 and 6-7: device ms per call
+  (``_device_ms``) and CUDA events around single calls (``_timed``);
 - the 40-scan ``kitti_config()`` slice and the 500-scan radius mission
   through ``runner.run_slam``: median and p90 ms/scan and ATE.
 
+OTHER may also be a copy of this checkout with one kernel constant edited,
+to time a variant: ``kTile`` in ``icpslam_tpu_torch/csrc/nn_tiles.cuh``
+(K3's tile, and K1's and K2's, which must still give the same bytes) or
+``kR`` in ``icpslam_tpu_torch/csrc/nn1_matmul.cu`` (K4's queries per warp).
+
 It prints one line per run, then one JSON line with each checkout's runs and
-whether the two checkouts' kernel outputs were equal. Both paths are
-host-bound, and their times move with the host from call to call, so two
-checkouts are compared only within one call.
+how the two checkouts' kernel outputs compare: K1 and K2 must be equal byte
+for byte; K3's hard counts equal and its moments within ``chip_smoke.py``'s
+MOM_ABS + MOM_REL·|x|; K4's d² within its rounding tolerance K4_REL·(|q_c|²
++ |t_c|²) + K4_ABS, and a differing pick only where the two picks' exact d²
+lie that close. It exits 1 if they do not. Both paths are host-bound, and
+their times move with the host from call to call, so two checkouts are
+compared only within one call.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.realpath(__file__))
 SLICE_SCANS = 40
@@ -68,14 +80,16 @@ def _path(cfg, n, dev):
     return {"ms_p50": s["step_ms_p50"], "ms_p90": s["step_ms_p90"], "ate_m": s["ate_m"]}
 
 
-def child() -> None:
-    """One run, in the checkout that is the working directory."""
+def child(save: str) -> None:
+    """One run, in the checkout that is the working directory; the kernel
+    outputs go to ``save`` (``torch.save``)."""
     sys.path.insert(0, os.getcwd())
     import torch
 
     import icpslam_tpu_torch
     from icpslam_tpu_torch.config import kitti_config
     from icpslam_tpu_torch.ops import cuda_build, nn
+    from icpslam_tpu_torch.ops import radius_stats as rs
 
     root = os.path.dirname(os.path.dirname(os.path.realpath(icpslam_tpu_torch.__file__)))
     if root != os.path.realpath(os.getcwd()):
@@ -89,16 +103,32 @@ def child() -> None:
     vl_map = torch.tensor(fill, dtype=torch.int32, device=dev)
     vl_scan = t.mask.sum(dtype=torch.int32)
     pts, mask = t.points.contiguous(), t.mask
-    calls = {
-        "K1 scan": lambda: nn.nn1_cuda(q.points, t.points, t.mask, vl_scan),
-        "K1 map": lambda: nn.nn1_cuda(query_world.points, map_pts, map_mask, vl_map),
-        "K2 k=10": lambda: nn.knn_cuda(pts, pts, mask, 10),
+    cases = {
+        "K1 scan": (nn.nn1_cuda, (q.points, t.points, t.mask, vl_scan)),
+        "K1 map": (nn.nn1_cuda, (query_world.points, map_pts, map_mask, vl_map)),
+        "K2 k=10": (nn.knn_cuda, (pts, pts, mask, 10)),
+        "K3 taper": (rs.radius_moments_cuda, (pts, pts, mask, 1.0, 0.5)),
+        "K3 hard": (rs.radius_moments_cuda, (pts, pts, mask, 1.0, 0.0)),
+        "K4 scan": (nn.nn1_matmul_cuda, (q.points, t.points, t.mask, vl_scan)),
+        "K4 map": (nn.nn1_matmul_cuda, (query_world.points, map_pts, map_mask, vl_map)),
     }
-    kernels = {}
-    for name, fn in calls.items():
-        out = fn()
-        kernels[name] = {"ms": cs._device_ms(fn), "event_ms": cs._timed(fn),
-                         "digest": _digest(*(out if name.startswith("K2") else (out.idx, out.dist2)))}
+    kernels, outputs = {}, {}
+    for name, (fn, args) in cases.items():
+        out = fn(*args)
+        tensors = tuple(out)
+        kernels[name] = {"ms": cs._device_ms(lambda: fn(*args)),
+                         "event_ms": cs._timed(lambda: fn(*args)), "digest": _digest(*tensors)}
+        outputs[name] = [x.cpu() for x in tensors]
+        if name.startswith("K4"):
+            # what the tolerance needs: |q_c|², and |t_c|² and the exact
+            # subtraction-form d² of the pick
+            qq, tt = args[0], args[1]
+            c = qq.mean(0)
+            qc, tc = qq - c, tt - c
+            pick = tc[out.idx]
+            outputs[name] += [nn._sqdist(qc).cpu(), nn._sqdist(pick).cpu(),
+                              nn._sqdist(pick - qc).cpu()]
+    torch.save(outputs, save)
     result = {"kernels": kernels,
               "slice": _path(kitti_config(), SLICE_SCANS, dev),
               "mission": _path(cs.radius_config(), MISSION_SCANS, dev)}
@@ -108,10 +138,10 @@ def child() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", nargs="?", help="another checkout, inside this one")
-    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--child", metavar="SAVE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        child()
+        child(args.child)
         return 0
     if args.other is None:
         ap.error("OTHER is required")
@@ -123,9 +153,13 @@ def main(argv=None) -> int:
         print(f"chip_ab: no icpslam_tpu_torch in {other}", file=sys.stderr)
         return 2
     runs = {"other": [], "this": []}
+    tmp = tempfile.TemporaryDirectory(prefix=".chip_ab_", dir=HERE)
+    saved = {"other": [], "this": []}
     for tree in (other, HERE, HERE, other):
         name = "this" if tree == HERE else "other"
-        proc = subprocess.run([sys.executable, os.path.join(HERE, "chip_ab.py"), "--child"],
+        save = os.path.join(tmp.name, f"{name}{len(saved[name])}.pt")
+        saved[name].append(save)
+        proc = subprocess.run([sys.executable, os.path.join(HERE, "chip_ab.py"), "--child", save],
                               cwd=tree, capture_output=True, text=True, timeout=1200)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:
@@ -142,8 +176,45 @@ def main(argv=None) -> int:
               flush=True)
     same = {k: runs["this"][0]["kernels"][k]["digest"] == runs["other"][0]["kernels"][k]["digest"]
             for k in runs["this"][0]["kernels"]}
-    print(json.dumps({"runs": runs, "same_kernel_outputs": same}))
-    return 0
+    repeatable = {name: all(r["kernels"][k]["digest"] == runs[name][0]["kernels"][k]["digest"]
+                            for r in runs[name] for k in r["kernels"])
+                  for name in runs}
+    compared = _compare(saved["this"][0], saved["other"][0])
+    tmp.cleanup()
+    ok = all(same[k] for k in same if k.startswith(("K1", "K2"))) and all(
+        c["ok"] for c in compared.values())
+    print(json.dumps({"runs": runs, "same_kernel_outputs": same,
+                      "repeatable_within_checkout": repeatable, "compared": compared, "ok": ok}))
+    return 0 if ok else 1
+
+
+def _compare(this: str, other: str) -> dict:
+    """K3 and K4 outputs of this checkout against the other's, each under
+    its tolerance (see the module docstring)."""
+    import torch
+
+    cs = _smoke()
+    a, b = torch.load(this), torch.load(other)
+    out = {}
+    for name in ("K3 taper", "K3 hard"):
+        ok, worst = True, 0.0
+        for x, y in zip(a[name], b[name]):
+            diff = (x - y).abs()
+            ok &= bool((diff <= cs.MOM_ABS + cs.MOM_REL * y.abs()).all())
+            worst = max(worst, float(diff.max()))
+        if name == "K3 hard":
+            ok &= torch.equal(a[name][0], b[name][0])
+        out[name] = {"ok": ok, "max_abs_diff": worst}
+    for name in ("K4 scan", "K4 map"):
+        (ia, da, qc2, ta, sa), (ib, db, _, tb, sb) = a[name], b[name]
+        tol = cs.K4_REL * (qc2 + torch.maximum(ta, tb)) + cs.K4_ABS
+        fin = torch.isfinite(db)
+        differ = (ia != ib) & fin
+        ok = (torch.equal(fin, torch.isfinite(da)) and bool(((da - db).abs() <= tol)[fin].all())
+              and bool(((sa - sb).abs() <= tol)[differ].all()))
+        out[name] = {"ok": ok, "max_abs_diff": float((da - db).abs()[fin].max()),
+                     "picks_differ": int(differ.sum())}
+    return out
 
 
 if __name__ == "__main__":

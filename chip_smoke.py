@@ -23,9 +23,15 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    under ``kitti_config()`` through ``slam_step``;
 6. K3 (``radius_moments``) against its plain version: self-moments of a
    voxel-filtered 8192-point scan, hard cutoff (r = 1.0 m) and taper
-   (σ = 0.5 m), 70% of targets masked, all masked, 1 km from the origin;
+   (σ = 0.5 m), 70% of targets masked, all masked, 1 km from the origin,
+   and the cases of its tile skip: the grid cloud's duplicates across
+   tiles, a target at d² == r² exactly and one at a tile's box edge just
+   inside r, ragged N and M, a query 700 m away. The hard count must be
+   equal on every row, the moments within MOM_ABS + MOM_REL·|plain|, and
+   the kernel's pair counter equal to ``swept_pairs_plain``;
 7. K4 (``nn1_matmul``) against its plain version and beside K1, on the
-   8192 × 8192 scan and the 8192 × 262,144 map cases of phase 2;
+   8192 × 8192 scan and the 8192 × 262,144 map cases of phase 2, ragged N
+   and M, and ``valid_len`` ending mid-tile;
 8. the radius mission: 500 scans of the KITTI proxy under
    ``kitti_config()`` with radius covariances in both ICP stages
    (``radius_config()``) through ``runner.run_slam`` — the run that
@@ -38,8 +44,9 @@ time per wrapper call, calls enqueued back to back behind a spin kernel
 calls (``_timed``). ``bound_ms`` is the least time the card could take
 for the same work (``_bound``). For K1 and K2 it counts the (query, live
 target) pairs this run's tile skip left to evaluate (``pairs_share`` of
-them, from the kernels' pair counter); ``bound_all_pairs_ms`` counts all
-of them, the bound of the earlier records. The line before the last is a
+them, from the kernels' pair counter; K3 likewise, over the pairs its
+tile skip swept); ``bound_all_pairs_ms`` counts all of them, the bound of
+the earlier records. The line before the last is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``. The script needs no JAX.
 """
@@ -53,8 +60,10 @@ import sys
 import time
 
 # K3 against its plain version: mean and covariance (and the tapered
-# weight sum) within MOM_ABS + MOM_REL·|plain|; the hard count is equal
-# except on queries with a pair within BOUNDARY·r² of the radius
+# weight sum) within MOM_ABS + MOM_REL·|plain| (the sums run in another
+# order); the hard count is equal on every row, those with a pair within
+# BOUNDARY·r² of the radius included (both decide d² < r² on the same
+# float32 d²)
 MOM_ABS = 1e-5
 MOM_REL = 1e-5
 BOUNDARY = 1e-5
@@ -125,8 +134,8 @@ def _device_ms(fn, calls: int = 20, reps: int = 7) -> float:
 
 
 def _pairs(fn) -> int:
-    """(query, live target) pairs that one call ``fn(pairs)`` of K1 or K2
-    evaluated, from the kernels' pair counter."""
+    """(query, live target) pairs that one call ``fn(pairs)`` of K1, K2 or
+    K3 evaluated, from the kernels' pair counter."""
     import torch
 
     pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
@@ -468,16 +477,16 @@ def phase_slice(dev):
     return {**s, "peak_bytes": peak}, launches
 
 
-def _near_boundary(p, m, r):
+def _near_boundary(q, t, m, r):
     """Queries with a live target whose float64 d² lies within BOUNDARY·r² of r²."""
     import torch
 
-    p64 = p.double()
+    q64, t64 = q.double(), t.double()
     rows = []
-    for s in range(0, p.shape[0], 1024):
-        d2 = ((p64[None, :, :] - p64[s : s + 1024, None, :]) ** 2).sum(-1)
-        rows.append(((d2 - r * r).abs() < BOUNDARY * r * r) & m[None, :])
-    return torch.cat([x.any(1) for x in rows])
+    for s in range(0, q.shape[0], 1024):
+        d2 = ((t64[None, :, :] - q64[s : s + 1024, None, :]) ** 2).sum(-1)
+        rows.append((((d2 - r * r).abs() < BOUNDARY * r * r) & m[None, :]).any(1))
+    return torch.cat(rows)
 
 
 def _close(name, a, b) -> float:
@@ -489,53 +498,116 @@ def _close(name, a, b) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def _radius_boundary(grid, live, r):
+    """The K3 cases at the radius, on ``_grid_cloud``'s grid: queries =
+    ``grid`` with row ``p_row`` replaced by P, 50 m above the cloud. B (row
+    5, tile 0) lies exactly r below P, so d² == r² (out of radius) and tile
+    0's box lies exactly r from P, which an inclusive skip test sweeps; A
+    (row live − 2, the last tile) lies r − r/256 below P, at the top of its
+    tile's box, so the box distance equals its d² < r². Returns ``(q, t,
+    p_row)``."""
+    import torch
+
+    t = grid.clone()
+    px, py = float(t[3000, 0]), float(t[3000, 1])
+    pz = float(t[:live, 2].max()) + 50.0
+    t[5] = torch.tensor([px, py, pz - r], device=t.device)
+    t[live - 2] = torch.tensor([px, py, pz - (r - r / 256)], device=t.device)
+    p_row = 4001
+    q = t.clone()
+    q[p_row] = torch.tensor([px, py, pz], device=t.device)
+    return q.contiguous(), t.contiguous(), p_row
+
+
 def phase_k3(clouds, dev):
     import torch
 
     from icpslam_tpu_torch.ops import radius_stats as rs
 
-    c = clouds[0]
+    c, other = clouds[0], clouds[1]
     pts, mask = c.points.contiguous(), c.mask
+    live = int(mask.sum())
     gen = torch.Generator(device="cpu").manual_seed(1)
     keep30 = (torch.rand(pts.shape[0], generator=gen) >= 0.7).to(dev) & mask
     far = torch.tensor([1000.0, -1000.0, 1000.0], device=dev)
     r, sigma = 1.0, 0.5
+    grid, _, _ = _grid_cloud(c)
+    bq, bt, p_row = _radius_boundary(grid, live, r)
+    far_q = pts.clone()
+    far_q[3000] = torch.tensor([500.0, -400.0, 300.0], device=dev)
+    ragged = (other.points[:7997].contiguous(), pts[:7001].contiguous(), mask[:7001])
     cases = {
-        "hard": (pts, mask, 0.0),
-        "taper": (pts, mask, sigma),
-        "hard, 70% masked": (pts, keep30, 0.0),
-        "taper, 70% masked": (pts, keep30, sigma),
-        "all masked": (pts, torch.zeros_like(mask), sigma),
-        "hard, 1 km from origin": ((pts + far).contiguous(), mask, 0.0),
-        "taper, 1 km from origin": ((pts + far).contiguous(), mask, sigma),
+        "hard": (pts, pts, mask, 0.0),
+        "taper": (pts, pts, mask, sigma),
+        "hard, 70% masked": (pts, pts, keep30, 0.0),
+        "taper, 70% masked": (pts, pts, keep30, sigma),
+        "all masked": (pts, pts, torch.zeros_like(mask), sigma),
+        "hard, 1 km from origin": ((pts + far).contiguous(), (pts + far).contiguous(), mask, 0.0),
+        "taper, 1 km from origin": ((pts + far).contiguous(), (pts + far).contiguous(), mask, sigma),
+        "hard, duplicates across tiles": (grid, grid, mask, 0.0),
+        "hard, d2 == r2 and the box edge": (bq, bt, mask, 0.0),
+        "taper, d2 == r2 and the box edge": (bq, bt, mask, sigma),
+        "hard, ragged 7997x7001": (*ragged, 0.0),
+        "taper, ragged 7997x7001": (*ragged, sigma),
+        "hard, one query 700 m away": (far_q, pts, mask, 0.0),
     }
-    err, inside = 0.0, 0
-    for name, (p, m, sg) in cases.items():
-        k = rs.radius_moments_cuda(p, p, m, r, sg)
-        pl = rs.radius_moments_plain(p, p, m, r, sg)
+    err, inside, boundary_rows = 0.0, 0, 0
+    for name, (q, t, m, sg) in cases.items():
+        pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+        k = rs.radius_moments_cuda(q, t, m, r, sg, pairs=pairs)
+        pl = rs.radius_moments_plain(q, t, m, r, sg)
         torch.cuda.synchronize()
-        rows = ~_near_boundary(p, m, r)
-        if sg == 0.0:
-            if not torch.equal(k[0][rows], pl[0][rows]):
-                raise AssertionError(f"radius {name}: counts differ")
-        err = max(err, _close(f"radius {name} count", k[0][rows], pl[0][rows]))
-        err = max(err, _close(f"radius {name} mean", k[1][rows], pl[1][rows]))
-        err = max(err, _close(f"radius {name} cov", k[2][rows], pl[2][rows]))
+        if sg == 0.0 and not torch.equal(k[0], pl[0]):
+            bad = k[0] != pl[0]
+            raise AssertionError(f"radius {name}: counts differ on {int(bad.sum())} rows")
+        err = max(err, _close(f"radius {name} count", k[0], pl[0]))
+        err = max(err, _close(f"radius {name} mean", k[1], pl[1]))
+        err = max(err, _close(f"radius {name} cov", k[2], pl[2]))
+        want = rs.swept_pairs_plain(q, t, m, r)
+        if int(pairs) != want:
+            raise AssertionError(f"radius {name}: the pair counter says {int(pairs)}, "
+                                 f"swept_pairs_plain {want}")
+        boundary_rows += int(_near_boundary(q, t, m, r).sum())
         if name == "hard":
             inside = int(pl[0].sum())
         if name == "all masked" and any(bool(x.any()) for x in k):
             raise AssertionError("radius all masked: expected zeros")
-    ms = _device_ms(lambda: rs.radius_moments_cuda(pts, pts, mask, r, sigma))
-    plain_ms = _timed(lambda: rs.radius_moments_plain(pts, pts, mask, r, sigma), iters=10)
-    n, live = pts.shape[0], int(mask.sum())
-    # 8 operations per live pair for d², then for each pair in radius one
-    # expf (counted as one operation) and 19 for the weighted sums; ~30
-    # per query for the epilogue
-    bound = _bound(8.0 * n * live + 20.0 * inside + 30.0 * n, 12 * n + 12 * n + n + 52 * n)
-    print(f"[6] radius_moments self 8192, r {r}, sigma {sigma}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
-          f"{inside} pairs in radius; matches on {len(cases)} cases, max err {err:.3g}")
-    return err, {"ms": ms, "plain_ms": plain_ms}, bound
+        if name.startswith("hard, d2 == r2") and not (
+            float(k[0][p_row]) == 1.0 and torch.equal(k[1][p_row], bt[live - 2])
+        ):
+            raise AssertionError("radius boundary: P must count A (at the box edge) and not B "
+                                 "(at d2 == r2)")
+        if name == "hard, one query 700 m away" and float(k[0][3000]) != 0.0:
+            raise AssertionError("radius: the far query found a neighbour")
+    if boundary_rows < 1:
+        raise AssertionError("radius: no case has a row at the radius")
+    n = pts.shape[0]
+    # 8 operations per swept (query, live target) pair for d², then for
+    # each pair in radius one expf (counted as one operation) and 19 for the
+    # weighted sums; ~30 per query for the epilogue; bytes: the queries and
+    # targets, the mask and the 13 outputs per query
+    nbytes = 12 * n + 12 * n + n + 52 * n
+    bound_all = _bound(8.0 * n * live + 20.0 * inside + 30.0 * n, nbytes)
+    swept = _pairs(lambda pr: rs.radius_moments_cuda(pts, pts, mask, r, sigma, pairs=pr))
+    if swept != rs.swept_pairs_plain(pts, pts, mask, r):
+        raise AssertionError(f"radius timed case: the pair counter says {swept}, "
+                             f"swept_pairs_plain {rs.swept_pairs_plain(pts, pts, mask, r)}")
+    bound = _bound(8.0 * swept + 20.0 * inside + 30.0 * n, nbytes)
+    out = {
+        "ms": _device_ms(lambda: rs.radius_moments_cuda(pts, pts, mask, r, sigma)),
+        "hard_ms": _device_ms(lambda: rs.radius_moments_cuda(pts, pts, mask, r, 0.0)),
+        "pairs_share": swept / (n * live),
+        "bound_ms": bound[0], "bound_by": bound[1], "bound_all_pairs_ms": bound_all[0],
+        "plain_ms": _timed(lambda: rs.radius_moments_plain(pts, pts, mask, r, sigma), iters=10),
+    }
+    print(f"[6] radius_moments self 8192, r {r}: kernel {out['ms']:.4f} ms (sigma {sigma}), "
+          f"{out['hard_ms']:.4f} ms (hard); pairs swept {100 * out['pairs_share']:.2f}% "
+          f"(kernel counter); bound {bound[0]:.5f} ms ({bound[1]}), all pairs "
+          f"{bound_all[0]:.4f} ms")
+    print(f"[6] radius_moments plain {out['plain_ms']:.4f} ms; {inside} pairs in radius; equals "
+          f"its plain version on {len(cases)} cases (hard counts on every row, {boundary_rows} "
+          f"rows at the radius among them; pair counter = swept_pairs_plain), max err {err:.3g}")
+    return err, out
 
 
 def phase_k4(clouds, query_world, map_pts, fill, dev):
@@ -550,6 +622,9 @@ def phase_k4(clouds, query_world, map_pts, fill, dev):
         "scan 8192x8192": (q.points, t.points, t.mask, t.mask.sum(dtype=torch.int32)),
         "map 8192x262144": (query_world.points, map_pts, map_mask,
                             torch.tensor(fill, dtype=torch.int32, device=dev)),
+        "ragged 7997x7001": (q.points[:7997], t.points[:7001], t.mask[:7001], None),
+        "valid_len mid-tile": (q.points, t.points, torch.ones_like(t.mask),
+                               torch.tensor(5037, dtype=torch.int32, device=dev)),
     }
     err, times = 0.0, {}
     for name, (qq, tt, mm, vl) in cases.items():
@@ -576,17 +651,25 @@ def phase_k4(clouds, query_world, map_pts, fill, dev):
             raise AssertionError(f"nn1_matmul {name}: indices differ beyond the rounding")
         if ((sub_k - k1.dist2).abs() > tol)[fin].any():
             raise AssertionError(f"nn1_matmul {name}: its pick is not K1's within the rounding")
+        live = int(mm.sum()) if vl is None else int(mm[: int(vl)].sum())
+        if vl is not None and not bool((k.idx[fin] < int(vl)).all()):
+            raise AssertionError(f"nn1_matmul {name}: a pick at or past valid_len")
+        print(f"[7] nn1_matmul {name}: {int(differ.sum())} picks differ from the plain version")
+        if name not in ("scan 8192x8192", "map 8192x262144"):
+            continue
+        n = qq.shape[0]
+        bound = _nn_bound(n, live, n * live, 8)
         times[name] = {
             "ms": _device_ms(lambda: nn.nn1_matmul_cuda(qq, tt, mm, vl)),
             "plain_ms": _timed(lambda: nn.nearest_neighbors_matmul_plain(qq, tt, mm, vl), iters=20),
             "nn1_ms": _device_ms(lambda: nn.nn1_cuda(qq, tt, mm, vl)),
+            "bound_ms": bound[0], "bound_by": bound[1],
         }
-        r = times[name]
-        print(f"[7] nn1_matmul {name}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, K1 in the same call {r['nn1_ms']:.4f} ms; "
-              f"{int(differ.sum())} picks differ from the plain version")
-    print(f"[7] nn1_matmul matches its plain version and K1 within the rounding, "
-          f"max |d2 err| {err:.3g}")
+        x = times[name]
+        print(f"[7] nn1_matmul {name}: kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
+              f"K1 in the same call {x['nn1_ms']:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]})")
+    print(f"[7] nn1_matmul matches its plain version and K1 within the rounding on {len(cases)} "
+          f"cases, max |d2 err| {err:.3g}")
     return err, times
 
 
@@ -662,13 +745,11 @@ def main(argv=None) -> int:
     k2_err, k2 = phase_k2(clouds, dev)
     sentinel = phase_sentinel(dev)
     slice_summary, slice_launches = phase_slice(dev)
-    k3_err, k3, k3_bound = phase_k3(clouds, dev)
+    k3_err, k3 = phase_k3(clouds, dev)
     k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
     mission, mission_launches = phase_mission(dev)
     print(f"    all phases in {time.perf_counter() - t_start:.1f} s")
 
-    n, live = 8192, int(clouds[0].mask.sum())
-    k4_bound = _nn_bound(n, n, n * live, 8)
     slice_path = f"kitti_config slice, {slice_summary['scans']} scans (phase 5)"
     mission_path = f"radius mission, {mission['scans']} scans (phase 8)"
     scan, mapq = k1["scan 8192x8192"], k1["map 8192x262144"]
@@ -691,14 +772,13 @@ def main(argv=None) -> int:
          "source": "icpslam_tpu_torch/csrc/radius_moments.cu",
          "replaces": "icpslam_tpu/ops/pallas/radius_stats_kernel.py:69",
          "launches": mission_launches["radius"], "path": mission_path,
-         "max_abs_err": k3_err, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+         "max_abs_err": k3_err, "library_ms": None, **k3},
         {"name": "nn1_matmul", "route": "cuda", "source": "icpslam_tpu_torch/csrc/nn1_matmul.cu",
          "replaces": "icpslam_tpu/ops/pallas/nn_kernel.py:123",
          "launches": mission_launches["nn1_matmul"],
          "path": "none: no path of slam_step calls it (nor in JAX)",
-         "max_abs_err": k4_err, "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
+         "max_abs_err": k4_err, "library_ms": None, **k4,
+         "map": k4_times["map 8192x262144"]},
     ]
     if args.out:
         with open(args.out, "w") as f:

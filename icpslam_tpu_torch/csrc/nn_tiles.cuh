@@ -1,14 +1,15 @@
-// Tiled exact neighbour search on Hopper, shared by K1 (nn1.cu) and K2
-// (knn.cu).
+// Tiled neighbour search on Hopper, shared by K1 (nn1.cu), K2 (knn.cu) and
+// K3 (radius_moments.cu).
 //
-// Both kernels search, for each query, the live targets in tiles of kTile
+// The kernels search, for each query, the live targets in tiles of kTile
 // consecutive targets. Scan clouds leave the voxel filter sorted by an
 // x-major key, so a tile is a thin x-slab, and the map is built by
 // appending such scans: most tiles lie far from most queries. One C call
 // runs two kernels on the caller's stream:
 //
 //  1. stage_tiles (the prologue): one block per tile. It writes the tile's
-//     targets centred on the query centroid as float4 (x, y, z, live) into
+//     targets centred on the given centre (K1/K2: the query centroid; K3: a
+//     zero centre, so the raw coordinates) as float4 (x, y, z, live) into
 //     the scratch buffer the wrapper allocated, with masked targets and the
 //     ragged end of the last tile at NaN (a NaN distance loses every
 //     compare, so the sweep needs no mask test), and the tile's axis-aligned
@@ -20,8 +21,10 @@
 //     the squared AABB distance lb2 in the same rounded operations as d2
 //     (no FMA), so lb2 <= d2 of every target in the tile, exactly. A tile
 //     is swept only if some query of the warp has lb2 <= its current bound
-//     (best d2 for K1, k-th best for K2): '<=' keeps a target exactly at
-//     the bound, which may win a tie on its lower index. Kept tiles are
+//     (best d2 for K1, k-th best for K2, the fixed r^2 for K3): '<=' keeps
+//     a target exactly at the bound, which may win a tie on its lower
+//     index (K3 counts only d2 < r^2, so there '<=' only sweeps a tile
+//     that lies exactly at the radius, which is exact too). Kept tiles are
 //     staged into a per-warp double buffer in shared memory with cp.async
 //     while the previous one is swept. Each lane of a query sweeps every
 //     kG-th target of the tile.
@@ -32,7 +35,9 @@
 // order. Tiles are visited in a rotation that starts at the tile with the
 // smallest lb2 for the warp's first query (ties: the first from the tile
 // whose rank matches the query's own rank, as the JAX kernel's matched
-// start, nn_kernel.py:245); the order changes the speed, never the result.
+// start, nn_kernel.py:245); for K1 and K2 the order changes the speed,
+// never the result. K3's sums are rounded in this order, which is fixed by
+// the inputs, so a run gives the same bits every time.
 //
 // An optional device counter (pairs, null on the main path) adds, per
 // swept tile, the warp's queries times the tile's live targets.
@@ -176,16 +181,19 @@ __device__ __forceinline__ float group_max(float x) {
   return x;
 }
 
+// min of 64-bit keys over aligned groups of W lanes (W = kG: one query's
+// lanes; W = 32: the warp)
+template <int W = kG>
 __device__ __forceinline__ unsigned long long group_min(unsigned long long x) {
 #pragma unroll
-  for (int off = kG / 2; off > 0; off >>= 1) {
+  for (int off = W / 2; off > 0; off >>= 1) {
     const unsigned long long y = __shfl_xor_sync(kFull, x, off);
     x = y < x ? y : x;
   }
   return x;
 }
 
-// The search loop. Acc is the per-lane accumulator of K1 or K2:
+// The search loop. Acc is the per-lane accumulator of K1, K2 or K3:
 //   float group_bound() const
 //       -- the d2 a target must not exceed to matter to the lane's query,
 //          agreed by the query's kG lanes (shuffles: all lanes call it)

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("nn1.cu", "knn.cu", "radius_moments.cu", "nn1_matmul.cu")
-HEADERS = ("nn_tiles.cuh",)  # included by nn1.cu and knn.cu
+HEADERS = ("nn_tiles.cuh",)  # included by every source
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,10 +105,13 @@ def load() -> ctypes.CDLL:
     lib.icpslam_knn.restype = _I
     lib.icpslam_nn_scratch_floats.argtypes = [_I]
     lib.icpslam_nn_scratch_floats.restype = _L
-    lib.icpslam_radius_moments.argtypes = [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P]
+    lib.icpslam_radius_moments.argtypes = [_P, _P, _P, _P, _I, _I, _F, _F, _P, _L, _P, _P,
+                                           _P, _P, _P]
     lib.icpslam_radius_moments.restype = _I
-    lib.icpslam_nn1_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P]
+    lib.icpslam_nn1_matmul.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _L, _P, _P, _P]
     lib.icpslam_nn1_matmul.restype = _I
+    lib.icpslam_nn1_matmul_scratch_floats.argtypes = [_I]
+    lib.icpslam_nn1_matmul_scratch_floats.restype = _L
     return lib
 
 

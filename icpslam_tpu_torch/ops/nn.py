@@ -337,10 +337,13 @@ def nearest_neighbors_matmul_plain(query, target, target_mask, valid_len=None) -
 def nn1_matmul_cuda(query, target, target_mask, valid_len=None) -> NNResult:
     """Launch K4 (``csrc/nn1_matmul.cu``) on the current stream.
 
-    Replaces ``icpslam_tpu/ops/pallas/nn_kernel.py::nearest_neighbors_pallas``:
-    one thread per query, shared-memory tiles of (t, |t|²), register
-    argmin, FP32 on the CUDA cores with FMA contraction. Bound by FP32
-    throughput like K1. ``nn1_matmul_cuda.launches`` counts the kernel launches.
+    Replaces ``icpslam_tpu/ops/pallas/nn_kernel.py::nearest_neighbors_pallas``.
+    One call launches a prologue that writes each target once as centred
+    (t, |t|²) and the sweep: 4 queries per warp held by all 32 lanes,
+    each block's tiles staged once in shared memory, the per-pair
+    expression pinned to three FMAs, the lanes' bests merged as (value,
+    index) keys. FP32 on the CUDA cores, no tensor cores; bound by FP32
+    instruction issue. ``nn1_matmul_cuda.launches`` counts calls.
     """
     dev = _check(query, target, target_mask, valid_len, need_contiguous=True)
     if dev.type != "cuda":
@@ -351,11 +354,13 @@ def nn1_matmul_cuda(query, target, target_mask, valid_len=None) -> NNResult:
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     if n:
+        scratch = torch.empty(int(lib.icpslam_nn1_matmul_scratch_floats(m)),
+                              dtype=torch.float32, device=dev)
         code = lib.icpslam_nn1_matmul(
             query.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
             None if valid_len is None else valid_len.data_ptr(),
-            center.data_ptr(), n, m, idx.data_ptr(), d2.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            center.data_ptr(), n, m, scratch.data_ptr(), scratch.numel(),
+            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         cuda_build.check(code, "icpslam_nn1_matmul")
         nn1_matmul_cuda.launches += 1

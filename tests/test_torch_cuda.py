@@ -7,16 +7,18 @@ package, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
 Shapes are ragged on purpose (N not a multiple of a warp's queries, M
-not a multiple of the 256-point tile). K1 and K2 also meet the cases that
-their tile skip must get right: voxel-sorted slab clouds (where the skip
-fires), exact duplicates in different tiles, a query far from every
-target, and a target exactly at the AABB-bound distance. Tolerances:
+not a multiple of the 256-point tile). K1, K2 and K3 also meet the cases
+that their tile skip must get right: voxel-sorted slab clouds (where the
+skip fires), exact duplicates in different tiles, a query far from every
+target, and a target exactly at the AABB-bound distance (K3: at d² == r²,
+and at a tile's box edge just inside r); K3's pair counter must equal
+``radius_stats.swept_pairs_plain``. Tolerances:
 - K1/K2: d² equal bit for bit and indices equal — kernel and plain
   version evaluate the same subtraction form in float32 on query-centred
   coordinates, without FMA contraction, and order by (d², index);
-- K3 (radius moments): the hard count exactly (membership is decided on
-  the same float32 d² in both), count/mean/cov within 1e-5 abs + 1e-5 rel
-  (the sums are reduced in another order);
+- K3 (radius moments): the hard count exactly on every row (membership
+  is decided on the same float32 d² in both), count/mean/cov within 1e-5
+  abs + 1e-5 rel (the sums are reduced in another order);
 - K4 (matmul-form 1-NN): d² within 4e-7·(|q_c|² + |t_c|²) + 1e-6, the
   rounding of the form, and a differing pick only where the two picks'
   exact d² lie that close.
@@ -215,17 +217,90 @@ def test_radius_moments_match_plain(dev, sigma, offset):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+def _radius_boundary(t, mask, p_row, r):
+    """Queries = ``t`` with row ``p_row`` replaced by P, 50 m above the
+    cloud; B (row 5, tile 0) exactly r below P (d² == r², out of radius,
+    and tile 0's box exactly r from P), A (row live − 2, the last tile)
+    r − r/256 below P at the top of its tile's box (in radius)."""
+    live = int(mask.sum())
+    px, py = float(t[300, 0]), float(t[300, 1])
+    pz = float(t[:live, 2].max()) + 50.0
+    t[5] = torch.tensor([px, py, pz - r])
+    t[live - 2] = torch.tensor([px, py, pz - (r - r / 256)])
+    q = t.clone()
+    q[p_row] = torch.tensor([px, py, pz])
+    return q, t
+
+
+K3_RADIUS = 1.0
+
+
+def _k3_case(case):
+    """(q, t, mask) on the CPU for a test_radius_moments_skip_matches_plain case."""
+    if case == "slab self":
+        t, mask = _slab_cloud(14, 1200, 1300)
+        return t, t, mask
+    if case == "slab grid, duplicates, radius boundary":
+        t, mask = _slab_cloud(10, 1200, 1300, grid=True)
+        t = _with_duplicates(t, mask)
+        q, t = _radius_boundary(t, mask, 601, K3_RADIUS)
+        return q, t, mask
+    if case == "one query far away":
+        t, mask = _slab_cloud(14, 1200, 1300)
+        q = t.clone()
+        q[70] = torch.tensor([500.0, -400.0, 300.0])
+        return q, t, mask
+    if case == "ragged":
+        t, mask = _slab_cloud(14, 1200, 1300)
+        q, _ = _slab_cloud(15, 1000, 1100)
+        return q[:997].clone(), t[:1203].clone(), mask[:1203].clone()
+    raise ValueError(case)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("valid_len", [None, 0, 700])
-def test_nn1_matmul_matches_plain(dev, valid_len):
+@pytest.mark.parametrize("sigma", [0.0, 0.5])
+@pytest.mark.parametrize("case", ["slab self", "slab grid, duplicates, radius boundary",
+                                  "one query far away", "ragged"])
+def test_radius_moments_skip_matches_plain(dev, case, sigma):
+    q, t, mask = _k3_case(case)
+    q, t, mask = q.to(dev), t.to(dev), mask.to(dev)
+    pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+    k = trs.radius_moments_cuda(q, t, mask, K3_RADIUS, sigma, pairs=pairs)
+    p = trs.radius_moments_plain(q, t, mask, K3_RADIUS, sigma)
+    torch.cuda.synchronize()
+    if sigma == 0.0:
+        assert torch.equal(k[0], p[0])
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    want = trs.swept_pairs_plain(q, t, mask, K3_RADIUS)
+    assert int(pairs) == want
+    assert want < q.shape[0] * int(mask.sum()), "the skip never fired"
+    if case.startswith("slab grid") and sigma == 0.0:
+        assert float(p[0][601]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "valid_len 0", "valid_len 700", "valid_len 1037",
+                                  "ragged", "slab map"])
+def test_nn1_matmul_matches_plain(dev, case):
     q, _ = _cloud(6, 1000)
     t, mask = _cloud(7, 1300, live=0.8)
-    if valid_len is not None:
+    valid_len = None
+    if case.startswith("valid_len"):
+        valid_len = int(case.split()[1])
         mask[valid_len:] = False
+    elif case == "ragged":
+        q, t, mask = q[:997].clone(), t[:1203].clone(), mask[:1203].clone()
+    elif case == "slab map":
+        q, _ = _slab_cloud(8, 1200, 1300)
+        t, mask = _slab_cloud(9, 1100, 1250)
+        t = torch.cat([t, torch.zeros(3000, 3)])
+        mask = torch.cat([mask, torch.zeros(3000, dtype=torch.bool)])
+        valid_len = int(mask.sum()) + 5
     q, t, mask = q.to(dev), t.to(dev), mask.to(dev)
     vl = None if valid_len is None else torch.tensor(valid_len, dtype=torch.int32, device=dev)
     before = tnn.nn1_matmul_cuda.launches
-    k = tnn.nearest_neighbors_matmul(q, t, mask, valid_len=vl)
+    k = tnn.nn1_matmul_cuda(q, t, mask, vl)
     p = tnn.nearest_neighbors_matmul_plain(q, t, mask, vl)
     torch.cuda.synchronize()
     assert tnn.nn1_matmul_cuda.launches == before + 1
@@ -241,6 +316,25 @@ def test_nn1_matmul_matches_plain(dev, valid_len):
     exact_p = ((tc[p.idx] - qc) ** 2).sum(-1)
     differ = (k.idx != p.idx) & fin
     assert bool(((exact_k - exact_p).abs() <= tol)[differ].all())
+    assert bool(mask[k.idx][fin].all())
+    if valid_len is not None:
+        assert bool((k.idx < max(valid_len, 1)).all())
+
+
+@pytest.mark.cuda
+def test_nn1_matmul_ties_go_to_the_lowest_index(dev):
+    """Exact duplicates in different tiles and lanes: the matmul form of
+    a duplicate rounds alike, so the lowest index must win."""
+    t, mask = _slab_cloud(10, 1200, 1300, grid=True)
+    t = _with_duplicates(t, mask)
+    live = int(mask.sum())
+    same = (t[:, None, :] == t[None, :, :]).all(-1) & mask[None, :]
+    first = same.int().argmax(1)          # the lowest live index at the same point
+    dst = live - 3 - 5 * torch.arange(20)
+    assert bool((first[dst] < dst).all())
+    k = tnn.nearest_neighbors_matmul(t.to(dev), t.to(dev), mask.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(k.idx.cpu()[mask], first[mask])
 
 
 @pytest.mark.cuda
