@@ -18,7 +18,9 @@ timers and inputs:
   the shapes of ``chip_smoke.py`` phases 2-3 and 6-7: device ms per call
   (``_device_ms``) and CUDA events around single calls (``_timed``);
 - the 40-scan ``kitti_config()`` slice and the 500-scan radius mission
-  through ``runner.run_slam``: median and p90 ms/scan and ATE.
+  through ``runner.run_slam``: median and p90 ms/scan, ATE, and the
+  runner's accepted, keyframe, edge, loop-closure and solve counts
+  (``same_path_counts`` says whether every run gave the same).
 
 OTHER may also be a copy of this checkout with one kernel constant edited,
 to time a variant: ``kTile`` in ``icpslam_tpu_torch/csrc/nn_tiles.cuh``
@@ -49,6 +51,8 @@ import tempfile
 HERE = os.path.dirname(os.path.realpath(__file__))
 SLICE_SCANS = 40
 MISSION_SCANS = 500
+# the runner's counts that each path records, compared between checkouts
+PATH_COUNTS = ("accepted", "keyframes", "edges", "loop_closures", "window_solves", "full_solves")
 
 
 def _smoke():
@@ -77,7 +81,9 @@ def _path(cfg, n, dev):
     init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
     res = runner.run_slam(stream, cfg, init, dev)
     s = {**res.summary(), **runner.evaluate(res, gt)}
-    return {"ms_p50": s["step_ms_p50"], "ms_p90": s["step_ms_p90"], "ate_m": s["ate_m"]}
+    counts = {k: s[k] for k in PATH_COUNTS}
+    return {"ms_p50": s["step_ms_p50"], "ms_p90": s["step_ms_p90"], "ate_m": s["ate_m"],
+            "counts": counts}
 
 
 def child(save: str) -> None:
@@ -180,11 +186,17 @@ def main(argv=None) -> int:
                             for r in runs[name] for k in r["kernels"])
                   for name in runs}
     compared = _compare(saved["this"][0], saved["other"][0])
+    same_counts = {p: all(r[p]["counts"] == runs["other"][0][p]["counts"]
+                          for rs in runs.values() for r in rs)
+                   for p in ("slice", "mission")}
+    print(f"path counts {runs['this'][0]['slice']['counts']} (slice), "
+          f"{runs['this'][0]['mission']['counts']} (mission); the same in every run: {same_counts}")
     tmp.cleanup()
     ok = all(same[k] for k in same if k.startswith(("K1", "K2"))) and all(
         c["ok"] for c in compared.values())
     print(json.dumps({"runs": runs, "same_kernel_outputs": same,
-                      "repeatable_within_checkout": repeatable, "compared": compared, "ok": ok}))
+                      "repeatable_within_checkout": repeatable, "compared": compared,
+                      "same_path_counts": same_counts, "ok": ok}))
     return 0 if ok else 1
 
 

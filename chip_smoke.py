@@ -35,9 +35,22 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
 8. the radius mission: 500 scans of the KITTI proxy under
    ``kitti_config()`` with radius covariances in both ICP stages
    (``radius_config()``) through ``runner.run_slam`` — the run that
-   reaches loop closure and the incremental window solve at full width.
+   reaches loop closure and the incremental window solve at full width;
+9. the long mission: 1,800 scans of the KITTI proxy under plain
+   ``kitti_config()`` (k-NN covariances through K2) through
+   ``runner.run_slam``, about 3.6 laps: the live graph outgrows the
+   256-node bucket, so full solves run PCG, and the 512-keyframe store
+   fills, so every later keyframe first marginalizes one. ms/scan median
+   and p90 before the first PCG solve, from it to the first eviction, and
+   after; host syncs per scan, dropped edges, peak memory;
+10. the three linear solvers on the graph phase 9 leaves (512 nodes, its
+   edges and mask): ``optimize`` with 'direct', 'pcg' and 'schur' (chunk
+   64, separator capacity 64), LM with 3 iterations as ``slam_step`` runs
+   them: CUDA-event ms (median of 5 calls), initial and final cost, the
+   separator count and whether Schur fell back to the direct solve; PCG's
+   and Schur's poses within SOLVER_DIST of direct's.
 
-Each path (phases 4, 5 and 8) is driven with every launch count set to 0
+Each path (phases 4, 5, 8 and 9) is driven with every launch count set to 0
 just before it and read just after. Kernel times (``ms``) are the device
 time per wrapper call, calls enqueued back to back behind a spin kernel
 (``_device_ms``); plain versions are timed by CUDA events around single
@@ -75,6 +88,18 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 MISSION_SCANS = 500
 MISSION_ATE = 0.10
+LONG_SCANS = 1800
+# The long mission's second lap closes a loop at every keyframe, and the
+# trajectory error grows there before the first PCG solve and before any
+# eviction: ATE 0.14 m over the 773 scans before PCG (phase 9 prints it),
+# 0.26 m over 1,800, and 0.27 m with the direct solve and no eviction
+# (configs/kitti_direct_1024.yaml). The JAX package shows the same growth
+# on a reduced-size drive (tests/long_mission_parity.py; PERF.md §6).
+# The limit catches a lost track, which costs metres.
+LONG_ATE = 0.35
+# PCG's and Schur's poses against the direct solve's on the 512-node graph
+# (float32; looser than the unit tests' 1e-3 m on 12-300 nodes)
+SOLVER_DIST = 5e-2
 
 
 def _timed(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -725,6 +750,152 @@ def phase_mission(dev):
     return {**s, "peak_bytes": peak, "first_loop_scan": int(loops[0])}, launches
 
 
+def _segments(step_ms, first_pcg: int, first_eviction: int) -> dict:
+    """Median and p90 ms/scan before the first PCG solve (the first scan
+    left out, as in the runner's summary), from it to the first eviction,
+    and after."""
+    import numpy as np
+
+    cuts = {"before_pcg": (1, min(first_pcg, first_eviction)),
+            "pcg_to_eviction": (first_pcg, max(first_pcg, first_eviction)),
+            "after_eviction": (first_eviction, len(step_ms))}
+    out = {}
+    for name, (a, b) in cuts.items():
+        x = np.asarray(step_ms[a:b])
+        out[name] = {"scans": int(x.size),
+                     "p50": float(np.median(x)) if x.size else None,
+                     "p90": float(np.percentile(x, 90)) if x.size else None}
+    return out
+
+
+def _ate(res, m: int) -> float:
+    """ATE (m, SE(3)-aligned) of the first ``m`` scans of a run of the
+    KITTI proxy."""
+    import torch
+
+    from icpslam_tpu_torch.eval import metrics
+    from icpslam_tpu_torch.geometry.se3 import Pose
+    from icpslam_tpu_torch.io import synthetic
+
+    gt = synthetic.make_urban_drive(n_poses=res.records.shape[0], rate_hz=10.0)
+    rec = torch.from_numpy(res.records[:m])
+    ate, _ = metrics.ate(Pose(rec[:, :3], rec[:, 3:7]),
+                         Pose(torch.from_numpy(gt[0][:m]), torch.from_numpy(gt[1][:m])), align=True)
+    return float(ate)
+
+
+def phase_long_mission(dev, scans: int = LONG_SCANS, cfg=None):
+    """The long mission (phase 9). Returns its summary, launch counts and
+    final state."""
+    import numpy as np
+    import torch
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import runner
+
+    cfg = cfg or kitti_config()
+    n = scans
+    s, launches, peak, res = _drive(runner.kitti_proxy_source, cfg, n, dev)
+    rec = res.records
+    cap = cfg.max_keyframes
+    new_kf = rec[:, 12] > 0
+    kf_before = np.concatenate([[0.0], rec[:-1, 16]])
+    evict_scans = np.nonzero(new_kf & (kf_before >= cap))[0]
+    pcg_scans = np.nonzero(np.asarray(res.pcg_solves) > 0)[0]
+    first_pcg = int(pcg_scans[0]) if pcg_scans.size else n
+    first_ev = int(evict_scans[0]) if evict_scans.size else n
+    seg = _segments(res.step_ms, first_pcg, first_ev)
+    ate_before_pcg = _ate(res, first_pcg)
+    edges = res.state.edges
+    count = int(edges.count)
+    valid = edges.valid.cpu()
+    prefix = bool(valid[:count].all()) and not bool(valid[count:].any())
+    loops_after = int(rec[first_ev:, 13].sum())
+    print(f"[9] long mission, {n} scans: ATE {s['ate_m']:.4f} m ({ate_before_pcg:.4f} m over the "
+          f"{first_pcg} scans before the first PCG solve), accepted {s['accepted']}/{n}, "
+          f"{s['keyframes']} keyframes, {s['evictions']} evictions (first at scan {first_ev}), "
+          f"{s['edges']} edges, {s['loop_closures']} loop-closure edges ({loops_after} after the "
+          f"first eviction), {s['pcg_solves']} PCG solves (first at scan {first_pcg}), "
+          f"{s['window_solves']} window and {s['full_solves']} full solves")
+    for name, x in seg.items():
+        if x["scans"]:
+            print(f"[9] ms/scan {name} ({x['scans']} scans): median {x['p50']:.2f} p90 {x['p90']:.2f}")
+    per = {k: v / n for k, v in launches.items()}
+    print(f"[9] host syncs/scan {s['host_syncs_per_scan']:.2f}; edge overflow {s['edge_overflow']}; "
+          f"launches/scan K1 {per['nn1']:.2f} (scan target {per['nn1_scan']:.2f}, map "
+          f"{per['nn1_map']:.2f}), K2 {per['knn']:.2f}, K3 {per['radius']:.2f}, "
+          f"K4 {per['nn1_matmul']:.2f}; peak memory {peak / 2**20:.1f} MiB")
+    if s["accepted"] < 0.9 * n:
+        raise AssertionError(f"only {s['accepted']}/{n} scans accepted")
+    if not s["ate_m"] <= LONG_ATE:
+        raise AssertionError(f"long mission ATE {s['ate_m']} > {LONG_ATE} m")
+    if s["keyframes"] != cap or s["evictions"] < 20 or s["evictions"] != evict_scans.size:
+        raise AssertionError(f"expected a full store of {cap} and >= 20 evictions, got "
+                             f"{s['keyframes']} keyframes, {s['evictions']} evictions "
+                             f"({evict_scans.size} eviction scans)")
+    if s["pcg_solves"] < 3 or s["window_solves"] < 1:
+        raise AssertionError(f"{s['pcg_solves']} PCG and {s['window_solves']} window solves")
+    if loops_after < 1:
+        raise AssertionError("no loop-closure edge after the first eviction")
+    if not prefix:
+        raise AssertionError(f"the edge store is not a valid prefix of {count}")
+    if not (launches["nn1"] > 0 and launches["knn"] > 0
+            and launches["radius"] == 0 and launches["nn1_matmul"] == 0):
+        raise AssertionError(f"the long mission must run K1 and K2 and neither K3 nor K4: {launches}")
+    if not torch.isfinite(res.state.keyframes.pose_graph.t).all():
+        raise AssertionError("non-finite graph poses")
+    out = {**s, "peak_bytes": peak, "first_pcg_scan": first_pcg, "first_eviction_scan": first_ev,
+           "ate_before_first_pcg_m": ate_before_pcg,
+           "loop_closures_after_first_eviction": loops_after, "segments": seg}
+    return out, launches, res.state
+
+
+def phase_solvers(state, chunk: int = 64, sep_capacity: int = 64):
+    """The three linear solvers on the final graph of phase 9 (phase 10)."""
+    import torch
+
+    from icpslam_tpu_torch.graph import pose_graph as pg
+    from icpslam_tpu_torch.graph import schur
+
+    store, edges = state.keyframes, state.edges
+    nodes, mask = store.pose_graph, store.valid_mask()
+    K = store.capacity
+    n_sep = int(schur.separator_mask(edges.i, edges.j, edges.valid, K, chunk).sum())
+    out, poses = {}, {}
+    for solver in ("direct", "pcg", "schur"):
+        def solve():
+            return pg.optimize(nodes, edges, mask, iterations=3, mode="lm", linear_solver=solver,
+                               schur_chunk_size=chunk, schur_sep_capacity=sep_capacity)
+
+        opt, stats = solve()
+        poses[solver] = opt
+        out[solver] = {"ms": _timed(solve, iters=5, warmup=1),
+                       "initial_cost": float(stats.initial_cost),
+                       "final_cost": float(stats.final_cost)}
+    out["schur"].update(n_sep=n_sep, fell_back=n_sep > sep_capacity)
+    for solver in ("pcg", "schur"):
+        d = torch.linalg.norm(poses[solver].t - poses["direct"].t, dim=-1)
+        out[solver]["max_dist_to_direct_m"] = float(d.max())
+    for solver, x in out.items():
+        extra = (f"; {x['max_dist_to_direct_m']:.3g} m from direct" if solver != "direct" else "")
+        extra += (f"; {n_sep} separators for {sep_capacity} slots, "
+                  f"{'fell back to direct' if x.get('fell_back') else 'no fallback'}"
+                  if solver == "schur" else "")
+        print(f"[10] {solver} on {int(store.count)} nodes, {int(edges.count)} edges: "
+              f"{x['ms']:.2f} ms, cost {x['initial_cost']:.6g} -> {x['final_cost']:.6g}{extra}")
+    for solver, opt in poses.items():
+        if not (torch.isfinite(opt.t).all() and torch.isfinite(opt.q).all()):
+            raise AssertionError(f"{solver}: non-finite poses")
+        if not out[solver]["final_cost"] <= out[solver]["initial_cost"]:
+            raise AssertionError(f"{solver}: the cost rose")
+        if solver != "direct" and not out[solver]["max_dist_to_direct_m"] <= SOLVER_DIST:
+            raise AssertionError(f"{solver}: poses {out[solver]['max_dist_to_direct_m']} m from "
+                                 f"the direct solve's (> {SOLVER_DIST})")
+    out.update(nodes=int(store.count), edges=int(edges.count), chunk=chunk,
+               sep_capacity=sep_capacity)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write all results to this JSON file")
@@ -748,10 +919,13 @@ def main(argv=None) -> int:
     k3_err, k3 = phase_k3(clouds, dev)
     k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
     mission, mission_launches = phase_mission(dev)
+    long_mission, long_launches, long_state = phase_long_mission(dev)
+    solvers = phase_solvers(long_state)
     print(f"    all phases in {time.perf_counter() - t_start:.1f} s")
 
     slice_path = f"kitti_config slice, {slice_summary['scans']} scans (phase 5)"
     mission_path = f"radius mission, {mission['scans']} scans (phase 8)"
+    long_path = f"long mission, {long_mission['scans']} scans (phase 9)"
     scan, mapq = k1["scan 8192x8192"], k1["map 8192x262144"]
     k4 = k4_times["scan 8192x8192"]
     kernels = [
@@ -780,6 +954,11 @@ def main(argv=None) -> int:
          "max_abs_err": k4_err, "library_ms": None, **k4,
          "map": k4_times["map 8192x262144"]},
     ]
+    for entry in kernels:
+        key = {"nn1": "nn1", "knn": "knn", "radius_moments": "radius",
+               "nn1_matmul": "nn1_matmul"}[entry["name"]]
+        entry["long_mission_launches"] = long_launches[key]
+        entry["long_mission_path"] = long_path
     if args.out:
         with open(args.out, "w") as f:
             json.dump({
@@ -788,6 +967,8 @@ def main(argv=None) -> int:
                 "sentinel": sentinel, "slice": slice_summary,
                 "slice_launches": slice_launches, "mission": mission,
                 "mission_launches": mission_launches,
+                "long_mission": long_mission, "long_mission_launches": long_launches,
+                "solvers": solvers,
                 "device": torch.cuda.get_device_name(0),
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))

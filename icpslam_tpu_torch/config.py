@@ -135,7 +135,7 @@ class SlamConfig:
     enable_wheel_odom_edges: bool = False
 
     # a full keyframe store: 'marginalize' evicts the most redundant frozen
-    # keyframe (not ported yet); 'none' stops adding keyframes
+    # keyframe (graph/marginalize.py); 'none' stops adding keyframes
     keyframe_eviction: str = "marginalize"
     keyframe_protect_recent: int = 8
     keyframe_loop_edge_penalty: float = 10.0

@@ -1,15 +1,14 @@
-"""SE(3) pose-graph optimization, the subset the slice needs (port of
-``icpslam_tpu/graph/pose_graph.py``).
+"""SE(3) pose-graph optimization (port of ``icpslam_tpu/graph/pose_graph.py``).
 
 Edge residuals ``log(Z⁻¹ X_i⁻¹ X_j)`` with closed-form right-perturbation
 Jacobians, dense block normal equations assembled with ``index_put_``
-accumulation, the node-0 gauge anchor, and GN / LM with a dense Cholesky
-(``torch.linalg.cholesky_ex``, no host check). :func:`optimize_bucketed`
-solves at the live size, which on append-only stores equals the JAX
-bucketed solve; it raises where the JAX ``'auto'`` rule would pick PCG.
-:func:`optimize_window` is the incremental solve of the trailing window,
-conditioned on the frozen prefix. PCG, Schur and marginalization are not
-ported yet.
+accumulation, the node-0 gauge anchor, and GN / LM with three linear
+solvers: a dense Cholesky (``torch.linalg.cholesky_ex``, no host check),
+matrix-free block-Jacobi PCG with its CG loop kept on the device, and the
+chunked Schur elimination of ``graph/schur.py``. :func:`optimize_bucketed`
+resolves ``'auto'`` on JAX's bucket and solves direct and PCG at the live
+size, Schur at the bucket size. :func:`optimize_window` is the incremental
+solve of the trailing window, conditioned on the frozen prefix.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ import torch
 
 from icpslam_tpu_torch.geometry import se3
 from icpslam_tpu_torch.geometry.se3 import Pose
+from icpslam_tpu_torch.graph import schur as schur_mod
+from icpslam_tpu_torch.utils.sync import to_host
 
 
 class EdgeSet(NamedTuple):
@@ -142,23 +143,179 @@ def normal_equations(
     return H.permute(0, 2, 1, 3), b
 
 
-def _solve_and_update(nodes: Pose, H: torch.Tensor, b: torch.Tensor, damping, node_mask):
-    """Damped dense Cholesky step; ``damping`` may be a 0-d tensor."""
-    K = nodes.t.shape[0]
-    dt, dev = nodes.t.dtype, nodes.t.device
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    diag = torch.arange(K, device=dev)
+def _damped(H: torch.Tensor, damping) -> torch.Tensor:
+    """``H`` with ``damping·max(mean diagonal, 1e-6)`` added to each node's
+    diagonal block; ``damping`` may be a 0-d tensor."""
+    K = H.shape[0]
+    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+    diag = torch.arange(K, device=H.device)
     blocks = H[diag, :, diag, :]
     scale = torch.diagonal(blocks, dim1=-2, dim2=-1).sum(-1) / 6.0
     Hd = H.clone()
     Hd[diag, :, diag, :] = blocks + (damping * torch.clamp(scale, min=1e-6))[:, None, None] * eye6
+    return Hd
+
+
+def _cholesky_delta(Hd: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(K, 6) solution of ``Hd x = −b`` by a dense Cholesky."""
+    K = b.shape[0]
     L, _ = torch.linalg.cholesky_ex(Hd.reshape(K * 6, K * 6))
-    delta = torch.cholesky_solve(-b.reshape(K * 6, 1), L).reshape(K, 6)
+    return torch.cholesky_solve(-b.reshape(K * 6, 1), L).reshape(K, 6)
+
+
+def _apply_delta(nodes: Pose, delta: torch.Tensor, node_mask: torch.Tensor) -> Pose:
     delta = delta * node_mask[:, None]
-    return se3.normalize(se3.compose(nodes, se3.se3_exp(delta))), delta
+    return se3.normalize(se3.compose(nodes, se3.se3_exp(delta)))
+
+
+def _solve_and_update(nodes: Pose, H: torch.Tensor, b: torch.Tensor, damping, node_mask) -> Pose:
+    """Damped dense Cholesky step; ``damping`` may be a 0-d tensor."""
+    return _apply_delta(nodes, _cholesky_delta(_damped(H, damping), b), node_mask)
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free PCG (JAX pose_graph.py:233-364)
+# ---------------------------------------------------------------------------
+
+
+def _edge_linearization(nodes: Pose, edges: EdgeSet):
+    """Per-edge residuals and Jacobians and the masked information, made
+    once per outer iteration and reused by every CG matvec."""
+    r, Ji, Jj = _edge_jacobians(nodes, edges)
+    info = edges.info * edges.valid.to(nodes.t.dtype)[:, None, None]
+    return r, Ji, Jj, info
+
+
+def _edge_diag_blocks(Ji, Jj, info, ei, ej, K: int) -> torch.Tensor:
+    """The edges' part of H's block diagonal, (K, 6, 6)."""
+    Hii = Ji.mT @ info @ Ji
+    Hjj = Jj.mT @ info @ Jj
+    D = torch.zeros((K, 6, 6), dtype=info.dtype, device=info.device)
+    return D.index_add_(0, ei, Hii).index_add_(0, ej, Hjj)
+
+
+def _regularize_diag(D, node_mask, anchor_weight):
+    eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
+    D = D + (~node_mask).to(D.dtype)[:, None, None] * eye6
+    D[0] += anchor_weight * eye6
+    return D
+
+
+def _diag_blocks(Ji, Jj, info, ei, ej, K, node_mask, anchor_weight):
+    """Block diagonal of the regularized H: the Jacobi preconditioner."""
+    return _regularize_diag(_edge_diag_blocks(Ji, Jj, info, ei, ej, K), node_mask, anchor_weight)
+
+
+def _edge_gradient(r, Ji, Jj, info, ei, ej, K: int) -> torch.Tensor:
+    """b = Σ JᵀΩr over the edges, (K, 6)."""
+    v = info @ r[..., None]
+    b = torch.zeros((K, 6), dtype=info.dtype, device=info.device)
+    return b.index_add_(0, ei, (Ji.mT @ v)[..., 0]).index_add_(0, ej, (Jj.mT @ v)[..., 0])
+
+
+def _apply_H_edges(Ji, Jj, info, ei, ej, x):
+    """The edges' part of H @ x."""
+    u = Ji @ x[ei][..., None] + Jj @ x[ej][..., None]
+    v = info @ u
+    y = torch.zeros_like(x)
+    return y.index_add_(0, ei, (Ji.mT @ v)[..., 0]).index_add_(0, ej, (Jj.mT @ v)[..., 0])
+
+
+def _regularize_apply(y, x, node_mask, anchor_weight, damping_diag):
+    y = y + (~node_mask).to(x.dtype)[:, None] * x
+    y[0] += anchor_weight * x[0]
+    return y + damping_diag * x
+
+
+def _apply_H(Ji, Jj, info, ei, ej, x, node_mask, anchor_weight, damping_diag):
+    """y = (H_reg + diagonal damping) @ x without forming H; x, y: (K, 6)."""
+    y = _apply_H_edges(Ji, Jj, info, ei, ej, x)
+    return _regularize_apply(y, x, node_mask, anchor_weight, damping_diag)
+
+
+def pcg_solve(apply_fn, Dinv, b, iterations: int = 50, tol: float = 1e-8):
+    """Preconditioned conjugate gradients for H x = b, ``apply_fn(x) = H @ x``,
+    ``Dinv`` the (K, 6, 6) block-Jacobi inverse. Returns ``(x, steps)``.
+
+    JAX's ``while_loop`` stops once ``r·r <= tol²·b²``. Here all
+    ``iterations`` steps are dispatched and ``x, r, p, rz`` freeze with
+    ``torch.where`` from the first step where that holds, which gives the
+    early exit's result with no host read per step.
+    """
+    def precond(r):
+        return (Dinv @ r[..., None])[..., 0]
+
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = (r * z).sum()
+    thresh = tol * tol * torch.clamp((b * b).sum(), min=1e-30)
+    live = torch.ones((), dtype=torch.bool, device=b.device)
+    steps = torch.zeros((), dtype=torch.int32, device=b.device)
+    tiny = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
+    for _ in range(iterations):
+        live = live & ((r * r).sum() > thresh)
+        Ap = apply_fn(p)
+        denom = (p * Ap).sum()
+        alpha = rz / torch.where(denom.abs() < 1e-30, tiny, denom)
+        r_new = r - alpha * Ap
+        z = precond(r_new)
+        rz_new = (r_new * z).sum()
+        beta = rz_new / torch.where(rz.abs() < 1e-30, tiny, rz)
+        x = torch.where(live, x + alpha * p, x)
+        p = torch.where(live, z + beta * p, p)
+        r = torch.where(live, r_new, r)
+        rz = torch.where(live, rz_new, rz)
+        steps = steps + live.to(torch.int32)
+    return x, steps
+
+
+def _pcg_delta(nodes: Pose, edges: EdgeSet, node_mask, damping, anchor_weight=1e6,
+               cg_iterations: int = 50) -> torch.Tensor:
+    """The (K, 6) step of one GN/LM iteration by matrix-free PCG."""
+    K = nodes.t.shape[0]
+    ei, ej = edges.i.long(), edges.j.long()
+    r, Ji, Jj, info = _edge_linearization(nodes, edges)
+    b = _edge_gradient(r, Ji, Jj, info, ei, ej, K) * node_mask[:, None]
+    D = _diag_blocks(Ji, Jj, info, ei, ej, K, node_mask, anchor_weight)
+    scale = torch.diagonal(D, dim1=-2, dim2=-1).sum(-1) / 6.0
+    damping_diag = (damping * torch.clamp(scale, min=1e-6))[:, None]
+    eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
+    Dinv = torch.linalg.inv_ex(D + damping_diag[..., None] * eye6 + 1e-9 * eye6)[0]
+
+    def apply_fn(x):
+        return _apply_H(Ji, Jj, info, ei, ej, x, node_mask, anchor_weight, damping_diag)
+
+    delta, _ = pcg_solve(apply_fn, Dinv, -b, iterations=cg_iterations)
+    return delta
+
+
+def _pcg_step(nodes: Pose, edges: EdgeSet, node_mask, damping, anchor_weight=1e6,
+              cg_iterations: int = 50) -> Pose:
+    """One GN/LM step with the matrix-free PCG linear solver."""
+    delta = _pcg_delta(nodes, edges, node_mask, damping, anchor_weight, cg_iterations)
+    return _apply_delta(nodes, delta, node_mask)
+
+
+def _schur_step(nodes: Pose, edges: EdgeSet, node_mask, damping, chunk_size: int,
+                sep_capacity: int) -> Pose:
+    """One GN/LM step by chunked Schur elimination of the damped system,
+    or, where the separators overflow ``sep_capacity``, by the dense
+    Cholesky of the same system. ``ok`` is read on the host (one counted
+    read per step): JAX's ``lax.cond`` on it becomes a host branch."""
+    K = nodes.t.shape[0]
+    H, b = normal_equations(nodes, edges, node_mask)
+    Hd = _damped(H, damping)
+    sm = schur_mod.separator_mask(edges.i, edges.j, edges.valid, K, chunk_size)
+    res = schur_mod.schur_solve(Hd, -b, sm, chunk_size, sep_capacity)
+    delta = res.delta if bool(to_host(res.ok)) else _cholesky_delta(Hd, b)
+    return _apply_delta(nodes, delta, node_mask)
 
 
 def resolve_linear_solver(linear_solver: str, n_nodes: int) -> str:
+    """'auto' is the dense Cholesky up to 256 nodes and PCG above (JAX's
+    rule, kept for parity); any other name is returned as it is."""
     if linear_solver == "auto":
         return "direct" if n_nodes <= 256 else "pcg"
     return linear_solver
@@ -167,7 +324,7 @@ def resolve_linear_solver(linear_solver: str, n_nodes: int) -> str:
 def _not_ported(solver: str) -> NotImplementedError:
     return NotImplementedError(
         f"linear_solver='{solver}' is not ported yet — ROADMAP.md Queue 1, "
-        "'PCG and the 'auto' rule above 256 nodes' / 'Schur and the deferred solve'"
+        "'parallel/ and tools/'"
     )
 
 
@@ -179,18 +336,37 @@ def optimize(
     mode: str = "lm",
     init_damping: float = 1e-4,
     linear_solver: str = "direct",
+    cg_iterations: int = 50,
+    schur_chunk_size: int = 64,
+    schur_sep_capacity: int = 64,
 ) -> Tuple[Pose, SolveStats]:
     """GN (fixed steps) or LM (accept/reject with adaptive damping, kept on
-    the device with ``torch.where``), direct solver only."""
+    the device with ``torch.where``). ``linear_solver``: 'direct' (dense
+    block Cholesky), 'pcg' (matrix-free block-Jacobi PCG, ``cg_iterations``
+    steps at most), 'schur' (chunked elimination, ``graph/schur.py``,
+    falling back to the dense Cholesky of the same damped system when the
+    separators overflow) or 'auto' (direct up to 256 nodes, PCG above).
+    ``optimize.pcg_solves`` counts the calls that solve by PCG."""
     solver = resolve_linear_solver(linear_solver, nodes.t.shape[0])
-    if solver != "direct":
+    if solver == "pcg":
+        optimize.pcg_solves += 1
+
+        def step(nds, lam):
+            return _pcg_step(nds, edges, node_mask, lam, cg_iterations=cg_iterations)
+    elif solver == "schur":
+        def step(nds, lam):
+            return _schur_step(nds, edges, node_mask, lam, schur_chunk_size, schur_sep_capacity)
+    elif solver == "direct":
+        def step(nds, lam):
+            H, b = normal_equations(nds, edges, node_mask)
+            return _solve_and_update(nds, H, b, lam, node_mask)
+    else:
         raise _not_ported(solver)
 
-    def step(nds, lam):
-        H, b = normal_equations(nds, edges, node_mask)
-        return _solve_and_update(nds, H, b, lam, node_mask)[0]
-
     return _gn_or_lm(step, nodes, edges, iterations, mode, init_damping)
+
+
+optimize.pcg_solves = 0
 
 
 def _gn_or_lm(step, nodes: Pose, edges: EdgeSet, iterations: int, mode: str, init_damping: float):
@@ -251,20 +427,38 @@ def optimize_bucketed(
     linear_solver: str = "direct",
     **kw,
 ) -> Tuple[Pose, SolveStats]:
-    """Solve the live prefix (``node_count`` nodes, ``edge_count`` edges —
-    host ints). On append-only stores the dead nodes and invalid edges of
-    a larger JAX bucket contribute decoupled identity blocks and zero
-    residuals, so the live-size solve gives the same poses. Raises where
-    JAX's bucket would resolve ``linear_solver`` to anything but direct."""
+    """Solve the live graph (``node_count`` nodes, ``edge_count`` edges —
+    host ints; the stores are prefix-filled) with ``linear_solver``
+    resolved on JAX's bucket (:func:`bucket_size`): 'auto' is direct up
+    to a 256-node bucket and PCG above.
+
+    Direct and PCG solve the live prefix. The dead nodes and invalid edges
+    of a larger JAX bucket contribute decoupled identity blocks and zero
+    residuals: a dead node has b = 0 and couples to nothing but its own
+    identity diagonal, so its entries of the direct solution, and of PCG's
+    x, r and p at every step, stay exactly 0, and the live-size solve
+    gives the bucket's poses. Schur solves the bucket itself, the prefix
+    of ``bucket`` nodes and ``E·bucket/K`` edges as JAX's branch does,
+    because its chunks are laid out from node 0 and must divide the size.
+    """
     K, E = nodes.t.shape[0], edges.i.shape[0]
     bucket = bucket_size(node_count, edge_count, K, E, min_bucket)
     solver = resolve_linear_solver(linear_solver, bucket)
-    if solver != "direct":
-        raise _not_ported(solver)
-    n = max(node_count, 1)
+    if solver == "schur":
+        n, eb = bucket, max(1, (E * bucket) // K)
+        # invalid edges past the count may hold stale indices beyond the
+        # bucket; they add nothing, so they are pointed at node 0
+        sub = EdgeSet(
+            i=torch.where(edges.valid[:eb], edges.i[:eb], 0),
+            j=torch.where(edges.valid[:eb], edges.j[:eb], 0),
+            rel_t=edges.rel_t[:eb], rel_q=edges.rel_q[:eb], info=edges.info[:eb],
+            valid=edges.valid[:eb], count=torch.clamp(edges.count, max=eb),
+            overflow=edges.overflow,
+        )
+    else:
+        n, sub = max(node_count, 1), live_edges(edges, edge_count)
     opt, stats = optimize(
-        Pose(t=nodes.t[:n], q=nodes.q[:n]), live_edges(edges, edge_count), node_mask[:n],
-        linear_solver="direct", **kw,
+        Pose(t=nodes.t[:n], q=nodes.q[:n]), sub, node_mask[:n], linear_solver=solver, **kw,
     )
     full = Pose(t=nodes.t.clone(), q=nodes.q.clone())
     full.t[:n] = opt.t
@@ -354,7 +548,7 @@ def optimize_window(
     def step(nds: Pose, lam) -> Pose:
         H, b = _window_normal_equations(nds, edges, start, W, local_mask, aw)
         win = Pose(t=nds.t[start : start + W], q=nds.q[start : start + W])
-        new, _ = _solve_and_update(win, H, b, lam + 1e-9, local_mask)
+        new = _solve_and_update(win, H, b, lam + 1e-9, local_mask)
         t, q = nds.t.clone(), nds.q.clone()
         t[start : start + W] = new.t
         q[start : start + W] = new.q

@@ -10,7 +10,8 @@ proxy with the idealized render under ``kitti_config()``. ``--config``
 loads the whole ``SlamConfig`` from YAML instead (PyYAML is needed only
 then), as the JAX runner's flag does. The run prints ATE/RPE against the
 ground truth and a one-line JSON summary, including the host syncs and
-kernel launches per scan and the window and full graph solves.
+kernel launches per scan, the window, full and PCG graph solves, the
+keyframe evictions and the edges dropped at a full edge store.
 ``--device`` defaults to ``cuda`` and fails without a card; the CPU runs
 only with ``--device cpu``.
 """
@@ -57,6 +58,7 @@ class RunResult:
     host_syncs: List[int]     # counted host reads per scan
     launches: Dict[str, List[int]]  # per kernel of KERNELS, launches per scan (CUDA only)
     window_solves: List[int]  # incremental window solves per scan
+    pcg_solves: List[int]     # graph solves by PCG per scan
 
     def summary(self) -> dict:
         r = self.records
@@ -71,6 +73,9 @@ class RunResult:
             "optimizations": int(self.state.num_optimizations),
             "window_solves": int(sum(self.window_solves)),
             "full_solves": int(self.state.num_optimizations) - int(sum(self.window_solves)),
+            "pcg_solves": int(sum(self.pcg_solves)),
+            "evictions": int(self.state.keyframes.evictions),
+            "edge_overflow": int(self.state.edges.overflow),
             "map_size": int(self.state.map.size),
             "host_syncs_per_scan": float(np.mean(self.host_syncs)) if self.host_syncs else 0.0,
         }
@@ -91,13 +96,14 @@ def run_slam(
     device = torch.device(device)
     state = slam.init_state(config, initial_pose, device=device)
     cuda = device.type == "cuda"
-    packed, processed, step_ms, syncs, windows = [], [], [], [], []
+    packed, processed, step_ms, syncs, windows, pcgs = [], [], [], [], [], []
     launches = {name: [] for name in KERNELS}
     origin = None
     t0 = time.perf_counter()
     for (points, mask), stamp in scans:
         origin = stamp if origin is None else origin
         s0, w0 = to_host.count, pose_graph.optimize_window.calls
+        p0 = pose_graph.optimize.pcg_solves
         k0 = {name: fn.launches for name, fn in KERNELS.items()}
         ts = time.perf_counter()
         cloud = pc.PointCloud(
@@ -109,6 +115,7 @@ def run_slam(
         step_ms.append((time.perf_counter() - ts) * 1000.0)
         syncs.append(to_host.count - s0)
         windows.append(pose_graph.optimize_window.calls - w0)
+        pcgs.append(pose_graph.optimize.pcg_solves - p0)
         for name, fn in KERNELS.items():
             launches[name].append(fn.launches - k0[name])
         packed.append(out.packed)
@@ -121,7 +128,7 @@ def run_slam(
     return RunResult(
         trajectory=traj, records=records, processed=registered, state=state,
         wall_time=time.perf_counter() - t0, step_ms=step_ms, host_syncs=syncs,
-        launches=launches, window_solves=windows,
+        launches=launches, window_solves=windows, pcg_solves=pcgs,
     )
 
 

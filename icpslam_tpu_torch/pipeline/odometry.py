@@ -82,6 +82,11 @@ def init_state(config, initial_pose: Pose | None = None, device=None) -> Odometr
     )
 
 
+def set_initial_pose(state: OdometryState, pose: Pose) -> OdometryState:
+    """Bootstrap from external (wheel) odometry."""
+    return state._replace(pose=pose)
+
+
 def check_supported(config) -> None:
     """Raise for the odometry options the port does not cover yet."""
     if config.deskew_rounds > 0:

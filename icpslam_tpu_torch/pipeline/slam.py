@@ -8,10 +8,16 @@ the optimization (``slam.py:536,657,677``) become host branches: the step
 reads the state's small counters once at its start and a few flags as it
 goes, each through the counted :func:`~icpslam_tpu_torch.utils.sync.to_host`.
 
+At a full keyframe store the step marginalizes the most redundant
+keyframe (``graph/marginalize.py``) before it adds the new one, and it
+then reads the edge count again (one host read, on eviction scans only).
+Wheel odometry enters through :func:`ingest_wheel_odometry` and adds a
+wheel edge beside each sequential edge when ``enable_wheel_odom_edges``.
+
 Parts of the JAX step that are not ported yet raise ``NotImplementedError``
 naming their ROADMAP item instead of doing something else: de-skew, the
-voxel and sharded maps, marginalization at a full keyframe store,
-PCG/Schur/dist-* solvers, wheel-odometry edges and the deferred solve.
+voxel and sharded maps, the dist-* solvers, the deferred solve and
+``collect_debug``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from icpslam_tpu_torch.cloud import pointcloud as pc
 from icpslam_tpu_torch.geometry import se3
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph import keyframes as kf
+from icpslam_tpu_torch.graph import marginalize as marg
 from icpslam_tpu_torch.graph import pose_graph as pg
 from icpslam_tpu_torch.mapping import backend as map_backend
 from icpslam_tpu_torch.mapping import scan_to_map
@@ -69,19 +76,25 @@ class SlamOutput(NamedTuple):
 
 
 def check_supported(config) -> None:
-    """Raise ``NotImplementedError`` for configurations outside the port."""
+    """Raise ``NotImplementedError`` for configurations outside the port and
+    ``ValueError`` for invalid ones. Unlike JAX, an unknown
+    ``keyframe_eviction`` is refused instead of acting as 'marginalize'."""
     odo.check_supported(config)
     map_backend.check_supported(config)
-    if config.enable_wheel_odom_edges:
-        raise NotImplementedError(
-            "wheel-odometry edges are not ported yet — ROADMAP.md Queue 1, 'wheel odometry'"
+    if config.keyframe_eviction not in ("none", "marginalize"):
+        raise ValueError(
+            f"keyframe_eviction={config.keyframe_eviction!r}: expected 'none' or 'marginalize'"
+        )
+    if (config.keyframe_eviction == "marginalize"
+            and config.max_keyframes <= config.keyframe_protect_recent + 1):
+        raise ValueError(
+            "keyframe_eviction='marginalize' needs max_keyframes > keyframe_protect_recent + 1"
         )
     if config.defer_optimization:
         raise NotImplementedError(
-            "defer_optimization is not ported yet — ROADMAP.md Queue 1, "
-            "'Schur and the deferred solve'"
+            "defer_optimization is not ported yet — ROADMAP.md Queue 1, 'the deferred solve'"
         )
-    if config.graph_linear_solver not in ("auto", "direct"):
+    if config.graph_linear_solver not in ("auto", "direct", "pcg", "schur"):
         raise pg._not_ported(config.graph_linear_solver)
     if config.collect_debug:
         raise NotImplementedError(
@@ -111,6 +124,26 @@ def init_state(config, initial_pose: Optional[Pose] = None, device=None) -> Slam
         num_optimizations=torch.tensor(0, dtype=i32, device=device),
         num_loop_closures=torch.tensor(0, dtype=i32, device=device),
         stamp=torch.tensor(0.0, device=device),
+    )
+
+
+def bootstrap_pose(state: SlamState, pose: Pose) -> SlamState:
+    """Seed the odometer from external (wheel) odometry."""
+    return state._replace(odom=odo.set_initial_pose(state.odom, pose), slam_pose=pose)
+
+
+def ingest_wheel_odometry(
+    state: SlamState, raw_pose: Pose, config, covariance: torch.Tensor | None = None
+) -> SlamState:
+    """Feed one external odometry message: its offset-removed pose seeds
+    the scan odometer until the first scan arrives, and the stream is kept
+    for the wheel-odometry edges. No host read."""
+    ro_state, out = robot_odo.robot_odometry_step(state.robot_odom, raw_pose, config, covariance)
+    need_bootstrap = ~state.odom.initialized
+    return state._replace(
+        robot_odom=ro_state,
+        odom=state.odom._replace(pose=se3.where(need_bootstrap, out.pose, state.odom.pose)),
+        slam_pose=se3.where(need_bootstrap, out.pose, state.slam_pose),
     )
 
 
@@ -245,11 +278,11 @@ def slam_step(
     flags = to_host(torch.stack([
         state.odom.initialized.to(i32), state.odom.skip_count.to(i32),
         state.keyframes.count, state.map.size, state.kf_since_opt,
-        state.lc_since_opt, state.edges.count,
+        state.lc_since_opt, state.edges.count, state.robot_odom.initialized.to(i32),
+        state.wheel_kf_valid.to(i32),
     ]))
-    initialized, skip_count, n_kf, map_size, kf_since, lc_since, n_edges = (
-        int(v) for v in flags
-    )
+    (initialized, skip_count, n_kf, map_size, kf_since, lc_since, n_edges, wheel_init,
+     wheel_kf_valid) = (int(v) for v in flags)
     skip = bool(initialized) and skip_count > 0
     do_register = bool(initialized) and not skip
 
@@ -293,11 +326,6 @@ def slam_step(
         want_kf = False
     if config.keyframe_eviction == "none":
         want_kf = want_kf and n_kf < state.keyframes.capacity
-    elif want_kf and n_kf >= state.keyframes.capacity:
-        raise NotImplementedError(
-            "marginalization at a full keyframe store is not ported yet — "
-            "ROADMAP.md Queue 1, 'marginalisation'"
-        )
 
     if config.adaptive_information:
         meas_hess = torch.where(refined, refine_hess, oout.hessian)
@@ -308,6 +336,18 @@ def slam_step(
 
     kf_idx, loop_added = -1, 0
     if want_kf:
+        if n_kf >= state.keyframes.capacity:
+            # a full store: marginalize the most redundant keyframe first
+            victim = marg.select_victim(
+                state.keyframes, state.edges,
+                protect_recent=config.keyframe_protect_recent,
+                loop_edge_penalty=config.keyframe_loop_edge_penalty,
+            )
+            store, edges = marg.marginalize_keyframe(state.keyframes, state.edges, victim)
+            state = state._replace(keyframes=store, edges=edges)
+            n_kf -= 1
+            # fusion and compaction changed the edge count
+            n_edges = int(to_host(edges.count))
         node_pose = se3.normalize(se3.compose(state.map_to_odom, slam_pose))
         prev_idx = max(n_kf - 1, 0)
         prev_odom = kf.latest_odom(state.keyframes)
@@ -320,6 +360,15 @@ def slam_step(
             seq_info, enable=n_kf > 0,
         )
         n_edges += int(n_kf > 0)
+        if config.enable_wheel_odom_edges:
+            # the wheel-odometry edge between the same keyframe pair
+            wheel_ok = n_kf > 0 and bool(wheel_init) and bool(wheel_kf_valid)
+            wheel_rel = se3.relative(state.wheel_at_last_kf, state.robot_odom.pose)
+            edges2 = pg.add_edge(
+                edges2, prev_idx, kf_idx, wheel_rel,
+                _information(config.odometry_information, dev), enable=wheel_ok,
+            )
+            n_edges += int(wheel_ok)
         n_kf += 1
         kf_since += 1
         state = state._replace(

@@ -202,10 +202,7 @@ _OUT_OF_SLICE = {
     "deskew": dict(deskew_rounds=1),
     "voxel-map": dict(map_backend="voxel"),
     "sharded-map": dict(map_backend="sharded"),
-    "wheel-edges": dict(enable_wheel_odom_edges=True),
     "deferred": dict(defer_optimization=True),
-    "pcg": dict(graph_linear_solver="pcg"),
-    "schur": dict(graph_linear_solver="schur"),
     "dist-direct": dict(graph_linear_solver="dist-direct"),
 }
 
@@ -215,6 +212,28 @@ def test_out_of_slice_config_raises(name):
     cfg = tconfig.tiny_config(**_OUT_OF_SLICE[name])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tslam.init_state(cfg, device="cpu")
+
+
+_NOW_IN_SLICE = {
+    "wheel-edges": dict(enable_wheel_odom_edges=True),
+    "pcg": dict(graph_linear_solver="pcg"),
+    "schur": dict(graph_linear_solver="schur"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NOW_IN_SLICE))
+def test_now_in_slice_config_initialises(name):
+    cfg = tconfig.tiny_config(**_NOW_IN_SLICE[name])
+    state = tslam.init_state(cfg, device="cpu")
+    assert int(state.keyframes.count) == 0 and int(state.edges.count) == 0
+
+
+@pytest.mark.parametrize("overrides", [dict(keyframe_eviction="drop"),
+                                       dict(max_keyframes=9, keyframe_protect_recent=8)],
+                         ids=["unknown-eviction", "store-below-protected-trail"])
+def test_invalid_eviction_config_raises(overrides):
+    with pytest.raises(ValueError, match="keyframe_eviction"):
+        tslam.init_state(tconfig.tiny_config(**overrides), device="cpu")
 
 
 def _room_scans(cfg, n):
@@ -227,13 +246,16 @@ def _room_scans(cfg, n):
     ]
 
 
-def test_full_keyframe_store_marginalization_raises():
+def test_full_keyframe_store_marginalizes():
     cfg = tconfig.tiny_config(max_keyframes=2, keyframe_distance=0.1, max_points=512,
-                              enable_loop_closure=False)
+                              enable_loop_closure=False, keyframe_protect_recent=0)
     state = tslam.init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="marginali"):
-        for scan in _room_scans(cfg, 4):
-            state, _ = tslam.slam_step(state, scan, cfg)
+    for scan in _room_scans(cfg, 4):
+        state, _ = tslam.slam_step(state, scan, cfg)
+    assert int(state.keyframes.evictions) >= 1
+    assert int(state.keyframes.count) == 2
+    n = int(state.edges.count)
+    assert n >= 1 and bool(state.edges.valid[:n].all()) and not bool(state.edges.valid[n:].any())
 
 
 @pytest.mark.parametrize("stage", ["icp_odometry", "icp_mapping"])
@@ -258,13 +280,15 @@ def test_incremental_window_solve_runs():
     assert torch.isfinite(state.keyframes.pose_graph.t).all()
 
 
-def test_bucket_resolving_to_pcg_raises():
+def test_bucket_resolving_to_pcg_runs():
     edges = tpg.empty_edges(2048)
     nodes = tpg.se3.identity((512,))
-    with pytest.raises(NotImplementedError, match="pcg"):
-        tpg.optimize_bucketed(
-            nodes, edges, torch.ones(512, dtype=torch.bool), 300, 299, linear_solver="auto"
-        )
+    calls = tpg.optimize.pcg_solves
+    opt, _ = tpg.optimize_bucketed(
+        nodes, edges, torch.ones(512, dtype=torch.bool), 300, 299, linear_solver="auto"
+    )
+    assert tpg.optimize.pcg_solves == calls + 1
+    assert torch.isfinite(opt.t).all() and torch.isfinite(opt.q).all()
     assert tpg.bucket_size(30, 40, 512, 2048, 64) == 64
     assert tpg.bucket_size(30, 300, 512, 2048, 64) == 128
 
