@@ -48,9 +48,30 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    64, separator capacity 64), LM with 3 iterations as ``slam_step`` runs
    them: CUDA-event ms (median of 5 calls), initial and final cost, the
    separator count and whether Schur fell back to the direct solve; PCG's
-   and Schur's poses within SOLVER_DIST of direct's.
+   and Schur's poses within SOLVER_DIST of direct's. Then the captured
+   solves (``graph/captured.py``) against the eager ones: direct on the
+   graph's 64-, 128- and 256-node prefixes (their buckets), PCG on all
+   512 nodes, and the window solve (W = 64): poses within CAPTURED_DIST,
+   final cost within CAPTURED_COST relative, replay and eager ms (CUDA
+   events, median of 5);
+11. the long mission deferred: the same scans as phase 9 (rendered once
+   for both) with ``defer_optimization`` and ``pipeline/deferred.py``'s
+   backend as the runner configures it (``check_every`` =
+   ``keyframes_window``, ``max_lag`` 8): launched and folded (equal after
+   ``flush``), evictions, PCG solves, folds across an eviction, graph
+   captures; ms/scan median, p90, p99 and max over all scans and over the
+   scans that launched or folded, beside phase 9's (all scans and its
+   optimize scans); host syncs per scan and peak memory, graph pools
+   included;
+12. the profile: ``utils/profiling.trace`` over 40 pre-rendered scans of
+   the phase 5 slice, inline and then deferred, each after one unprofiled
+   warm run, with ``torch.cuda.set_sync_debug_mode("warn")`` on; the
+   traces go to ``_traces/`` (git-ignored). Device-busy share, kernels
+   and host launch calls per scan, the five costliest device ops, and the
+   host syncs per scan by source: the counted ``to_host`` reads, the step
+   timer's stream sync and the rest (implicit).
 
-Each path (phases 4, 5, 8 and 9) is driven with every launch count set to 0
+Each path (phases 4, 5, 8, 9 and 11) is driven with every launch count set to 0
 just before it and read just after. Kernel times (``ms``) are the device
 time per wrapper call, calls enqueued back to back behind a spin kernel
 (``_device_ms``); plain versions are timed by CUDA events around single
@@ -100,6 +121,12 @@ LONG_ATE = 0.35
 # PCG's and Schur's poses against the direct solve's on the 512-node graph
 # (float32; looser than the unit tests' 1e-3 m on 12-300 nodes)
 SOLVER_DIST = 5e-2
+# a captured solve against the eager one: the same kernels in the same
+# order; the scatter-adds' atomics sum in another order
+CAPTURED_DIST = 1e-4
+CAPTURED_COST = 1e-4
+PROFILE_SCANS = 40
+TRACE_DIR = "_traces"
 
 
 def _timed(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -429,24 +456,30 @@ def phase_k2(clouds, dev):
     return err, res
 
 
-def _drive(source, cfg, poses, dev):
+def _drive(source, cfg, poses, dev, rendered=None, backend=None):
     """Run the port's runner loop with every kernel's launch count set to 0
     just before it; the counts are read just after. K1's calls are also
     split by target capacity: ``nn1_scan`` (a scan or keyframe cloud,
-    ``max_points``) and ``nn1_map`` (the map, ``max_map_points``)."""
+    ``max_points``) and ``nn1_map`` (the map, ``max_map_points``).
+    ``rendered``: ``(scans, gt)`` rendered beforehand instead of
+    ``source``'s stream; ``backend``: a deferred back end, called after
+    every step and flushed at the end."""
     import torch
 
     from icpslam_tpu_torch.geometry.se3 import Pose
     from icpslam_tpu_torch.io import runner
     from icpslam_tpu_torch.ops import nn
 
-    stream, gt = source(cfg, poses, 10.0)
+    stream, gt = rendered if rendered is not None else source(cfg, poses, 10.0)
     init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in runner.KERNELS.values():
         fn.launches = 0
     nn.nn1_cuda.launches_by_capacity.clear()
-    res = runner.run_slam(stream, cfg, init, dev)
+    post = backend.maybe_launch_or_fold if backend is not None else None
+    res = runner.run_slam(stream, cfg, init, dev, post_step=post)
+    if backend is not None:
+        res.state = backend.flush(res.state)
     launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
     by_m = nn.nn1_cuda.launches_by_capacity
     launches["nn1_scan"] = by_m.get(cfg.max_points, 0)
@@ -768,6 +801,28 @@ def _segments(step_ms, first_pcg: int, first_eviction: int) -> dict:
     return out
 
 
+def _ms_stats(step_ms, scans=None) -> dict:
+    """Median, p90, p99 and max of the step times of ``scans`` (all of them
+    by default), the first scan of the run left out as in the runner's
+    summary."""
+    import numpy as np
+
+    idx = np.arange(1, len(step_ms)) if scans is None else np.asarray(
+        [i for i in scans if i > 0], dtype=int)
+    x = np.asarray(step_ms)[idx] if idx.size else np.zeros(0)
+    if not x.size:
+        return {"scans": 0}
+    return {"scans": int(x.size), "p50": float(np.median(x)), "p90": float(np.percentile(x, 90)),
+            "p99": float(np.percentile(x, 99)), "max": float(x.max())}
+
+
+def _fmt(m: dict) -> str:
+    if not m.get("scans"):
+        return "no scans"
+    return (f"median {m['p50']:.2f} p90 {m['p90']:.2f} p99 {m['p99']:.2f} max {m['max']:.2f} "
+            f"({m['scans']} scans)")
+
+
 def _ate(res, m: int) -> float:
     """ATE (m, SE(3)-aligned) of the first ``m`` scans of a run of the
     KITTI proxy."""
@@ -784,9 +839,18 @@ def _ate(res, m: int) -> float:
     return float(ate)
 
 
-def phase_long_mission(dev, scans: int = LONG_SCANS, cfg=None):
-    """The long mission (phase 9). Returns its summary, launch counts and
-    final state."""
+def _render(source, cfg, n):
+    """``source``'s stream, rendered on the host into a list: ``(scans, gt)``."""
+    t0 = time.perf_counter()
+    stream, gt = source(cfg, n, 10.0)
+    scans = list(stream)
+    print(f"    rendered {n} scans in {time.perf_counter() - t0:.1f} s")
+    return scans, gt
+
+
+def phase_long_mission(dev, rendered, cfg=None):
+    """The long mission (phase 9) on ``rendered`` scans. Returns its
+    summary, launch counts and the runner's result."""
     import numpy as np
     import torch
 
@@ -794,8 +858,8 @@ def phase_long_mission(dev, scans: int = LONG_SCANS, cfg=None):
     from icpslam_tpu_torch.io import runner
 
     cfg = cfg or kitti_config()
-    n = scans
-    s, launches, peak, res = _drive(runner.kitti_proxy_source, cfg, n, dev)
+    n = len(rendered[0])
+    s, launches, peak, res = _drive(runner.kitti_proxy_source, cfg, n, dev, rendered=rendered)
     rec = res.records
     cap = cfg.max_keyframes
     new_kf = rec[:, 12] > 0
@@ -846,8 +910,10 @@ def phase_long_mission(dev, scans: int = LONG_SCANS, cfg=None):
         raise AssertionError("non-finite graph poses")
     out = {**s, "peak_bytes": peak, "first_pcg_scan": first_pcg, "first_eviction_scan": first_ev,
            "ate_before_first_pcg_m": ate_before_pcg,
-           "loop_closures_after_first_eviction": loops_after, "segments": seg}
-    return out, launches, res.state
+           "loop_closures_after_first_eviction": loops_after, "segments": seg,
+           "ms": _ms_stats(res.step_ms),
+           "ms_optimize_scans": _ms_stats(res.step_ms, np.nonzero(rec[:, 14] > 0)[0])}
+    return out, launches, res
 
 
 def phase_solvers(state, chunk: int = 64, sep_capacity: int = 64):
@@ -893,6 +959,266 @@ def phase_solvers(state, chunk: int = 64, sep_capacity: int = 64):
                                  f"the direct solve's (> {SOLVER_DIST})")
     out.update(nodes=int(store.count), edges=int(edges.count), chunk=chunk,
                sep_capacity=sep_capacity)
+    out["captured"] = _captured_solves(store, edges)
+    return out
+
+
+def _prefix_graph(store, edges, n: int):
+    """The first ``n`` keyframes of a graph: the node mask and the valid
+    edges between them, moved to the front of the store (stable), the rest
+    invalid with their stale indices. Returns ``(edges, mask, count)``."""
+    import torch
+
+    from icpslam_tpu_torch.graph import pose_graph as pg
+
+    dev = edges.i.device
+    keep = edges.valid & (edges.i < n) & (edges.j < n)
+    order = torch.argsort((~keep).to(torch.int8), stable=True)
+    m = int(keep.sum())
+    sub = pg.EdgeSet(
+        i=edges.i[order], j=edges.j[order], rel_t=edges.rel_t[order], rel_q=edges.rel_q[order],
+        info=edges.info[order], valid=torch.arange(edges.capacity, device=dev) < m,
+        count=torch.full((), m, dtype=torch.int32, device=dev), overflow=edges.overflow,
+    )
+    return sub, torch.arange(store.capacity, device=dev) < n, m
+
+
+def _captured_solves(store, edges) -> dict:
+    """Phase 10's second part: each captured solve against its eager
+    solve on phase 9's graph — direct on the 64-, 128- and 256-node
+    prefixes, PCG on all of it ('auto' on their buckets), the window."""
+    import functools
+
+    import torch
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.graph import captured
+    from icpslam_tpu_torch.graph import pose_graph as pg
+
+    cfg = kitti_config()
+    kw = dict(iterations=cfg.graph_solver_iterations, mode=cfg.graph_solver)
+    K, E = store.capacity, edges.capacity
+    nodes = store.pose_graph
+    solves = captured.CapturedSolves(nodes.t.device)
+    out = {}
+    for n in (64, 128, 256, int(store.count)):
+        sub, mask, m = _prefix_graph(store, edges, n)
+        bucket = pg.bucket_size(n, m, K, E, cfg.graph_bucket_min)
+        solver = pg.resolve_linear_solver(cfg.graph_linear_solver, bucket)
+        args = (nodes, sub, mask, bucket, solver)
+        out[f"{solver} {n}"] = dict(
+            eager=functools.partial(pg.solve_bucket, *args, **kw),
+            replay=functools.partial(solves.full, *args, **kw),
+            nodes=n, edges=m, bucket=bucket)
+    W = cfg.graph_window
+    args = (nodes, edges, store.valid_mask(), store.count, W)
+    out[f"window {W}"] = dict(
+        eager=functools.partial(pg.optimize_window, *args, **kw),
+        replay=functools.partial(solves.window, *args, **kw),
+        nodes=int(store.count), edges=int(edges.count), bucket=W)
+    res = {}
+    for name, c in out.items():
+        want, got = c["eager"](), c["replay"]()
+        torch.cuda.synchronize()
+        dist = float((got[0].t - want[0].t).norm(dim=-1).max())
+        dq = float((got[0].q - want[0].q).abs().max())
+        cost_rel = abs(float(got[1].final_cost) - float(want[1].final_cost)) / max(
+            abs(float(want[1].final_cost)), 1e-30)
+        r = res[name] = {
+            "nodes": c["nodes"], "edges": c["edges"], "bucket": c["bucket"],
+            "replay_ms": _timed(c["replay"], iters=5, warmup=1),
+            "eager_ms": _timed(c["eager"], iters=5, warmup=1),
+            "max_dist_m": dist, "max_dq": dq, "cost_rel": cost_rel,
+            "initial_cost": float(want[1].initial_cost), "final_cost": float(want[1].final_cost),
+        }
+        print(f"[10] captured {name} (bucket {r['bucket']}, {r['nodes']} nodes, {r['edges']} "
+              f"edges): replay {r['replay_ms']:.3f} ms, eager {r['eager_ms']:.2f} ms; poses "
+              f"{dist:.3g} m / {dq:.3g} from eager, cost {r['final_cost']:.6g} ({cost_rel:.3g} rel)")
+        if not (torch.isfinite(got[0].t).all() and torch.isfinite(got[0].q).all()):
+            raise AssertionError(f"captured {name}: non-finite poses")
+        if not (dist <= CAPTURED_DIST and dq <= CAPTURED_DIST and cost_rel <= CAPTURED_COST):
+            raise AssertionError(f"captured {name}: {dist} m, {dq} in q, cost {cost_rel} rel from "
+                                 f"the eager solve (> {CAPTURED_DIST} / {CAPTURED_COST})")
+    res["graphs"] = len(solves.graphs)
+    return res
+
+
+def phase_deferred(dev, rendered, inline: dict):
+    """Phase 11: the long mission with the deferred back end."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.pipeline import deferred
+
+    cfg = dataclasses.replace(kitti_config(), defer_optimization=True)
+    # as the runner's --deferred-optimize configures it
+    backend = deferred.DeferredBackend(cfg, check_every=cfg.keyframes_window)
+    n = len(rendered[0])
+    s, launches, peak, res = _drive(runner.kitti_proxy_source, cfg, n, dev, rendered=rendered,
+                                    backend=backend)
+    active = sorted(set(backend.launched_at) | set(backend.folded_at))
+    ms_all, ms_active = _ms_stats(res.step_ms), _ms_stats(res.step_ms, active)
+    ms_capture = [res.step_ms[i] for i in backend.capture_calls]
+    rec = res.records
+    cap = cfg.max_keyframes
+    kf_before = np.concatenate([[0.0], rec[:-1, 16]])
+    evict_scans = np.nonzero((rec[:, 12] > 0) & (kf_before >= cap))[0]
+    edges = res.state.edges
+    count = int(edges.count)
+    valid = edges.valid.cpu()
+    prefix = bool(valid[:count].all()) and not bool(valid[count:].any())
+    print(f"[11] deferred long mission, {n} scans: ATE {s['ate_m']:.4f} m (inline, phase 9: "
+          f"{inline['ate_m']:.4f}), accepted {s['accepted']}/{n}, {s['keyframes']} keyframes, "
+          f"{s['evictions']} evictions, {s['edges']} edges, {s['loop_closures']} loop-closure edges, "
+          f"{s['pcg_solves']} PCG solves, {s['window_solves']} window solves")
+    print(f"[11] solves launched {backend.num_launched}, folded {backend.num_folded}, "
+          f"{backend.folds_across_eviction} folds across an eviction; {len(ms_capture)} graph "
+          f"captures at launch, on scans taking {[round(x, 1) for x in ms_capture]} ms")
+    print(f"[11] ms/scan all: {_fmt(ms_all)}; launch or fold scans: {_fmt(ms_active)}")
+    print(f"[9]  ms/scan all: {_fmt(inline['ms'])}; optimize scans: "
+          f"{_fmt(inline['ms_optimize_scans'])}")
+    print(f"[11] host syncs/scan {s['host_syncs_per_scan']:.2f} (phase 9: "
+          f"{inline['host_syncs_per_scan']:.2f}); peak memory {peak / 2**20:.1f} MiB, graph pools "
+          f"included (phase 9: {inline['peak_bytes'] / 2**20:.1f}); launches/scan K1 "
+          f"{launches['nn1'] / n:.2f}, K2 {launches['knn'] / n:.2f}")
+    if backend.num_launched != backend.num_folded or backend.num_launched < 1:
+        raise AssertionError(f"launched {backend.num_launched}, folded {backend.num_folded}")
+    if s["optimizations"] != backend.num_folded:
+        raise AssertionError(f"{s['optimizations']} optimizations for {backend.num_folded} folds")
+    if s["accepted"] < 0.9 * n:
+        raise AssertionError(f"only {s['accepted']}/{n} scans accepted")
+    if not s["ate_m"] <= LONG_ATE:
+        raise AssertionError(f"deferred long mission ATE {s['ate_m']} > {LONG_ATE} m")
+    if s["keyframes"] != cap or s["evictions"] < 20 or s["evictions"] != evict_scans.size:
+        raise AssertionError(f"expected a full store of {cap} and >= 20 evictions, got "
+                             f"{s['keyframes']} keyframes, {s['evictions']} evictions")
+    if s["pcg_solves"] < 3:
+        raise AssertionError(f"{s['pcg_solves']} PCG solves")
+    if not prefix:
+        raise AssertionError(f"the edge store is not a valid prefix of {count}")
+    if not (launches["nn1"] > 0 and launches["knn"] > 0):
+        raise AssertionError(f"the deferred mission must run K1 and K2: {launches}")
+    if not (torch.isfinite(res.state.keyframes.pose_graph.t).all()
+            and torch.isfinite(res.state.keyframes.pose_graph.q).all()):
+        raise AssertionError("non-finite graph poses")
+    out = {**s, "peak_bytes": peak, "launched": backend.num_launched,
+           "folded": backend.num_folded, "folds_across_eviction": backend.folds_across_eviction,
+           "capture_scans": backend.capture_calls, "capture_scan_ms": ms_capture,
+           "ms": ms_all, "ms_launch_or_fold_scans": ms_active}
+    return out, launches
+
+
+def _sync_sources(records, repo: str):
+    """Host syncs that ``set_sync_debug_mode("warn")`` reported, by
+    source: ``to_host`` (the counted reads), ``stream`` (a stream
+    synchronize: the runner's step timer) and the rest by file:line."""
+    import collections
+    import os
+
+    counted, stream, rest = 0, 0, collections.Counter()
+    for r in records:
+        f = r.filename.replace("\\", "/")
+        if f.endswith("icpslam_tpu_torch/utils/sync.py"):
+            counted += 1
+        elif f.endswith("torch/cuda/streams.py"):
+            stream += 1
+        else:
+            rel = os.path.relpath(f, repo) if f.startswith(repo) else f
+            rest[f"{rel}:{r.lineno}"] += 1
+    return counted, stream, rest
+
+
+def phase_profile(dev):
+    """Phase 12: a torch.profiler trace and the host syncs of 40 scans of
+    the slice, inline and deferred."""
+    import dataclasses
+    import os
+    import warnings
+
+    import torch
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.geometry.se3 import Pose
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.pipeline import deferred
+    from icpslam_tpu_torch.utils import profiling
+    from icpslam_tpu_torch.utils.sync import to_host
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    n = PROFILE_SCANS
+    rendered = _render(runner.kitti_proxy_source, kitti_config(), n)
+    gt = rendered[1]
+    init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
+    out = {}
+    for mode in ("inline", "deferred"):
+        cfg = dataclasses.replace(kitti_config(), defer_optimization=mode == "deferred")
+        shared = None
+        for run in ("warm", "profiled"):
+            backend = (deferred.DeferredBackend(cfg, check_every=cfg.keyframes_window,
+                                                captured=shared)
+                       if mode == "deferred" else None)
+            post = backend.maybe_launch_or_fold if backend is not None else None
+            if run == "warm":
+                res = runner.run_slam(rendered[0], cfg, init, dev, post_step=post)
+                if backend is not None:
+                    # the profiled run's backend replays the same graphs
+                    backend.flush(res.state)
+                    shared = backend.captured
+                continue
+            logdir = os.path.join(repo, TRACE_DIR, f"phase12_{mode}")
+            s0 = to_host.count
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as recs:
+                    warnings.simplefilter("always")
+                    with profiling.trace(logdir):
+                        res = runner.run_slam(rendered[0], cfg, init, dev, post_step=post)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            wall = time.perf_counter() - t0
+            if backend is not None:
+                res.state = backend.flush(res.state)
+            counted_calls = to_host.count - s0
+            syncs = [r for r in recs if "synchronizing CUDA operation" in str(r.message)]
+            counted, stream, rest = _sync_sources(syncs, repo)
+            summ = profiling.device_summary(logdir)
+            r = out[mode] = {
+                "scans": n, "wall_s": wall, **{k: summ[k] for k in (
+                    "window_us", "device_busy_us", "device_busy_share", "kernels", "launch_calls",
+                    "graph_launches", "top")},
+                "kernels_per_scan": summ["kernels"] / n,
+                "launch_calls_per_scan": summ["launch_calls"] / n,
+                "to_host_per_scan": counted_calls / n, "sync_warnings_per_scan": len(syncs) / n,
+                "to_host_warnings_per_scan": counted / n, "stream_syncs_per_scan": stream / n,
+                "implicit_syncs_per_scan": sum(rest.values()) / n,
+                "implicit_sources": dict(rest.most_common(8)),
+                "step_ms": _ms_stats(res.step_ms),
+                "solves": int(res.state.num_optimizations),
+            }
+            print(f"[12] {mode}, {n} scans profiled (trace {os.path.relpath(logdir, repo)}): device "
+                  f"busy {100 * r['device_busy_share']:.1f}% of {r['window_us'] / 1e3:.1f} ms; "
+                  f"{r['kernels_per_scan']:.0f} kernels and {r['launch_calls_per_scan']:.0f} host "
+                  f"launch calls per scan ({r['graph_launches']} graph launches); ms/scan under the "
+                  f"profiler {_fmt(r['step_ms'])}")
+            for x in r["top"]:
+                print(f"[12] {mode} top device op: {x['total_us'] / 1e3:.2f} ms in {x['calls']} "
+                      f"calls, {x['name'][:100]}")
+            print(f"[12] {mode} host syncs per scan: {r['sync_warnings_per_scan']:.2f} reported "
+                  f"by set_sync_debug_mode('warn') = {r['to_host_warnings_per_scan']:.2f} counted "
+                  f"to_host reads (to_host.count: {r['to_host_per_scan']:.2f}) + "
+                  f"{r['stream_syncs_per_scan']:.2f} step-timer stream syncs + "
+                  f"{r['implicit_syncs_per_scan']:.2f} implicit; implicit sources "
+                  f"{r['implicit_sources']}")
+            if summ["kernels"] < n:
+                raise AssertionError(f"the {mode} trace holds {summ['kernels']} kernels for {n} "
+                                     "scans: the profiler saw no device activity")
+            if r["solves"] < 1:
+                raise AssertionError(f"no graph solve in the {mode} profile")
     return out
 
 
@@ -919,13 +1245,22 @@ def main(argv=None) -> int:
     k3_err, k3 = phase_k3(clouds, dev)
     k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
     mission, mission_launches = phase_mission(dev)
-    long_mission, long_launches, long_state = phase_long_mission(dev)
-    solvers = phase_solvers(long_state)
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import runner
+
+    rendered = _render(runner.kitti_proxy_source, kitti_config(), LONG_SCANS)
+    long_mission, long_launches, long_res = phase_long_mission(dev, rendered)
+    solvers = phase_solvers(long_res.state)
+    del long_res
+    deferred_mission, deferred_launches = phase_deferred(dev, rendered, long_mission)
+    del rendered
+    profile = phase_profile(dev)
     print(f"    all phases in {time.perf_counter() - t_start:.1f} s")
 
     slice_path = f"kitti_config slice, {slice_summary['scans']} scans (phase 5)"
     mission_path = f"radius mission, {mission['scans']} scans (phase 8)"
     long_path = f"long mission, {long_mission['scans']} scans (phase 9)"
+    deferred_path = f"deferred long mission, {deferred_mission['scans']} scans (phase 11)"
     scan, mapq = k1["scan 8192x8192"], k1["map 8192x262144"]
     k4 = k4_times["scan 8192x8192"]
     kernels = [
@@ -959,6 +1294,8 @@ def main(argv=None) -> int:
                "nn1_matmul": "nn1_matmul"}[entry["name"]]
         entry["long_mission_launches"] = long_launches[key]
         entry["long_mission_path"] = long_path
+        entry["deferred_mission_launches"] = deferred_launches[key]
+        entry["deferred_mission_path"] = deferred_path
     if args.out:
         with open(args.out, "w") as f:
             json.dump({
@@ -968,7 +1305,8 @@ def main(argv=None) -> int:
                 "slice_launches": slice_launches, "mission": mission,
                 "mission_launches": mission_launches,
                 "long_mission": long_mission, "long_mission_launches": long_launches,
-                "solvers": solvers,
+                "solvers": solvers, "deferred_mission": deferred_mission,
+                "deferred_mission_launches": deferred_launches, "profile": profile,
                 "device": torch.cuda.get_device_name(0),
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))

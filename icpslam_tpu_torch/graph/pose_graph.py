@@ -2,13 +2,17 @@
 
 Edge residuals ``log(Z⁻¹ X_i⁻¹ X_j)`` with closed-form right-perturbation
 Jacobians, dense block normal equations assembled with ``index_put_``
-accumulation, the node-0 gauge anchor, and GN / LM with three linear
+accumulation (sorted, so deterministic on the card) and the other node
+sums by :class:`_EndpointSum` (no atomics on the card), the node-0 gauge
+anchor, and GN / LM with three linear
 solvers: a dense Cholesky (``torch.linalg.cholesky_ex``, no host check),
 matrix-free block-Jacobi PCG with its CG loop kept on the device, and the
 chunked Schur elimination of ``graph/schur.py``. :func:`optimize_bucketed`
-resolves ``'auto'`` on JAX's bucket and solves direct and PCG at the live
-size, Schur at the bucket size. :func:`optimize_window` is the incremental
-solve of the trailing window, conditioned on the frozen prefix.
+resolves ``'auto'`` on JAX's bucket and solves every solver at the bucket
+size (:func:`solve_bucket`). :func:`optimize_window` is the incremental
+solve of the trailing window, conditioned on the frozen prefix, with its
+start on the device. Both have static shapes and make no host-to-device
+copy, so ``graph/captured.py`` can capture them as CUDA graphs.
 """
 
 from __future__ import annotations
@@ -114,6 +118,32 @@ def _edge_jacobians(nodes: Pose, edges: EdgeSet):
     return r, Ji, Jr_inv
 
 
+class _EndpointSum:
+    """Sums of per-edge rows onto the edges' endpoints: ``s(a, b)[k] =
+    Σ_{e: i_e = k} a[e] + Σ_{e: j_e = k} b[e]`` over ``n`` nodes.
+
+    On the card the sums are products with the (n, E) incidence matrices,
+    in a fixed order and without atomics, so a solve gives the same bits
+    in every run, eager or replayed from a CUDA graph (``index_add_``
+    sums there with atomics, in an order that changes from run to run).
+    On the CPU they are ``index_add_``, serial in edge order.
+    """
+
+    def __init__(self, ei: torch.Tensor, ej: torch.Tensor, n: int, dtype):
+        self.ei, self.ej, self.n = ei, ej, n
+        if ei.is_cuda:
+            nodes = torch.arange(n, device=ei.device)[:, None]
+            self.Mi = (ei[None, :] == nodes).to(dtype)
+            self.Mj = (ej[None, :] == nodes).to(dtype)
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        shape = (self.n,) + a.shape[1:]
+        if self.ei.is_cuda:
+            E = a.shape[0]
+            return (self.Mi @ a.reshape(E, -1) + self.Mj @ b.reshape(E, -1)).reshape(shape)
+        return a.new_zeros(shape).index_add_(0, self.ei, a).index_add_(0, self.ej, b)
+
+
 def normal_equations(
     nodes: Pose, edges: EdgeSet, node_mask: torch.Tensor, anchor_weight: float = 1e6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -132,9 +162,7 @@ def normal_equations(
     H.index_put_((ei, ej), Hij, accumulate=True)
     H.index_put_((ej, ei), Hij.mT, accumulate=True)
     H.index_put_((ej, ej), Hjj, accumulate=True)
-    b = torch.zeros((K, 6), dtype=dt, device=dev)
-    b.index_add_(0, ei, (JiT_O @ r[..., None])[..., 0])
-    b.index_add_(0, ej, (JjT_O @ r[..., None])[..., 0])
+    b = _EndpointSum(ei, ej, K, dt)((JiT_O @ r[..., None])[..., 0], (JjT_O @ r[..., None])[..., 0])
     eye6 = torch.eye(6, dtype=dt, device=dev)
     diag = torch.arange(K, device=dev)
     H[diag, diag] += (~node_mask).to(dt)[:, None, None] * eye6
@@ -186,12 +214,9 @@ def _edge_linearization(nodes: Pose, edges: EdgeSet):
     return r, Ji, Jj, info
 
 
-def _edge_diag_blocks(Ji, Jj, info, ei, ej, K: int) -> torch.Tensor:
+def _edge_diag_blocks(Ji, Jj, info, at: _EndpointSum) -> torch.Tensor:
     """The edges' part of H's block diagonal, (K, 6, 6)."""
-    Hii = Ji.mT @ info @ Ji
-    Hjj = Jj.mT @ info @ Jj
-    D = torch.zeros((K, 6, 6), dtype=info.dtype, device=info.device)
-    return D.index_add_(0, ei, Hii).index_add_(0, ej, Hjj)
+    return at(Ji.mT @ info @ Ji, Jj.mT @ info @ Jj)
 
 
 def _regularize_diag(D, node_mask, anchor_weight):
@@ -201,24 +226,22 @@ def _regularize_diag(D, node_mask, anchor_weight):
     return D
 
 
-def _diag_blocks(Ji, Jj, info, ei, ej, K, node_mask, anchor_weight):
+def _diag_blocks(Ji, Jj, info, at: _EndpointSum, node_mask, anchor_weight):
     """Block diagonal of the regularized H: the Jacobi preconditioner."""
-    return _regularize_diag(_edge_diag_blocks(Ji, Jj, info, ei, ej, K), node_mask, anchor_weight)
+    return _regularize_diag(_edge_diag_blocks(Ji, Jj, info, at), node_mask, anchor_weight)
 
 
-def _edge_gradient(r, Ji, Jj, info, ei, ej, K: int) -> torch.Tensor:
+def _edge_gradient(r, Ji, Jj, info, at: _EndpointSum) -> torch.Tensor:
     """b = Σ JᵀΩr over the edges, (K, 6)."""
     v = info @ r[..., None]
-    b = torch.zeros((K, 6), dtype=info.dtype, device=info.device)
-    return b.index_add_(0, ei, (Ji.mT @ v)[..., 0]).index_add_(0, ej, (Jj.mT @ v)[..., 0])
+    return at((Ji.mT @ v)[..., 0], (Jj.mT @ v)[..., 0])
 
 
-def _apply_H_edges(Ji, Jj, info, ei, ej, x):
+def _apply_H_edges(Ji, Jj, info, at: _EndpointSum, x):
     """The edges' part of H @ x."""
-    u = Ji @ x[ei][..., None] + Jj @ x[ej][..., None]
+    u = Ji @ x[at.ei][..., None] + Jj @ x[at.ej][..., None]
     v = info @ u
-    y = torch.zeros_like(x)
-    return y.index_add_(0, ei, (Ji.mT @ v)[..., 0]).index_add_(0, ej, (Jj.mT @ v)[..., 0])
+    return at((Ji.mT @ v)[..., 0], (Jj.mT @ v)[..., 0])
 
 
 def _regularize_apply(y, x, node_mask, anchor_weight, damping_diag):
@@ -227,9 +250,9 @@ def _regularize_apply(y, x, node_mask, anchor_weight, damping_diag):
     return y + damping_diag * x
 
 
-def _apply_H(Ji, Jj, info, ei, ej, x, node_mask, anchor_weight, damping_diag):
+def _apply_H(Ji, Jj, info, at: _EndpointSum, x, node_mask, anchor_weight, damping_diag):
     """y = (H_reg + diagonal damping) @ x without forming H; x, y: (K, 6)."""
-    y = _apply_H_edges(Ji, Jj, info, ei, ej, x)
+    y = _apply_H_edges(Ji, Jj, info, at, x)
     return _regularize_apply(y, x, node_mask, anchor_weight, damping_diag)
 
 
@@ -253,7 +276,7 @@ def pcg_solve(apply_fn, Dinv, b, iterations: int = 50, tol: float = 1e-8):
     thresh = tol * tol * torch.clamp((b * b).sum(), min=1e-30)
     live = torch.ones((), dtype=torch.bool, device=b.device)
     steps = torch.zeros((), dtype=torch.int32, device=b.device)
-    tiny = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
+    tiny = torch.full((), 1e-30, dtype=b.dtype, device=b.device)
     for _ in range(iterations):
         live = live & ((r * r).sum() > thresh)
         Ap = apply_fn(p)
@@ -277,15 +300,16 @@ def _pcg_delta(nodes: Pose, edges: EdgeSet, node_mask, damping, anchor_weight=1e
     K = nodes.t.shape[0]
     ei, ej = edges.i.long(), edges.j.long()
     r, Ji, Jj, info = _edge_linearization(nodes, edges)
-    b = _edge_gradient(r, Ji, Jj, info, ei, ej, K) * node_mask[:, None]
-    D = _diag_blocks(Ji, Jj, info, ei, ej, K, node_mask, anchor_weight)
+    at = _EndpointSum(ei, ej, K, info.dtype)
+    b = _edge_gradient(r, Ji, Jj, info, at) * node_mask[:, None]
+    D = _diag_blocks(Ji, Jj, info, at, node_mask, anchor_weight)
     scale = torch.diagonal(D, dim1=-2, dim2=-1).sum(-1) / 6.0
     damping_diag = (damping * torch.clamp(scale, min=1e-6))[:, None]
     eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
     Dinv = torch.linalg.inv_ex(D + damping_diag[..., None] * eye6 + 1e-9 * eye6)[0]
 
     def apply_fn(x):
-        return _apply_H(Ji, Jj, info, ei, ej, x, node_mask, anchor_weight, damping_diag)
+        return _apply_H(Ji, Jj, info, at, x, node_mask, anchor_weight, damping_diag)
 
     delta, _ = pcg_solve(apply_fn, Dinv, -b, iterations=cg_iterations)
     return delta
@@ -372,14 +396,17 @@ optimize.pcg_solves = 0
 def _gn_or_lm(step, nodes: Pose, edges: EdgeSet, iterations: int, mode: str, init_damping: float):
     """``iterations`` fixed GN steps (``step(nodes, 0.0)``) or LM steps that
     are kept only when they lower the graph's cost, the damping halved on
-    accept and quadrupled on reject — all on the device, no host read."""
+    accept and quadrupled on reject — all on the device, with no host read
+    and no host-to-device copy."""
+    dev = nodes.t.device
     c0 = graph_cost(nodes, edges)
+    its = torch.full((), iterations, dtype=torch.int32, device=dev)
     if mode == "gn":
         for _ in range(iterations):
             nodes = step(nodes, 0.0)
-        return nodes, SolveStats(c0, graph_cost(nodes, edges), torch.tensor(iterations))
+        return nodes, SolveStats(c0, graph_cost(nodes, edges), its)
 
-    lam = torch.tensor(init_damping, dtype=nodes.t.dtype, device=nodes.t.device)
+    lam = torch.full((), init_damping, dtype=nodes.t.dtype, device=dev)
     cost = c0
     for _ in range(iterations):
         cand = step(nodes, lam)
@@ -388,18 +415,7 @@ def _gn_or_lm(step, nodes: Pose, edges: EdgeSet, iterations: int, mode: str, ini
         nodes = se3.where(accept, cand, nodes)
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), torch.clamp(lam * 4.0, max=1e6))
         cost = torch.where(accept, c_new, cost)
-    return nodes, SolveStats(c0, cost, torch.tensor(iterations))
-
-
-def live_edges(edges: EdgeSet, edge_count: int) -> EdgeSet:
-    """The first ``edge_count`` edges (at least one; a host int). The
-    edges past the count are invalid and add nothing to any solve."""
-    m = max(edge_count, 1)
-    return EdgeSet(
-        i=edges.i[:m], j=edges.j[:m], rel_t=edges.rel_t[:m], rel_q=edges.rel_q[:m],
-        info=edges.info[:m], valid=edges.valid[:m], count=edges.count,
-        overflow=edges.overflow,
-    )
+    return nodes, SolveStats(c0, cost, its)
 
 
 def bucket_size(node_count: int, edge_count: int, K: int, E: int, min_bucket: int) -> int:
@@ -428,37 +444,47 @@ def optimize_bucketed(
     **kw,
 ) -> Tuple[Pose, SolveStats]:
     """Solve the live graph (``node_count`` nodes, ``edge_count`` edges —
-    host ints; the stores are prefix-filled) with ``linear_solver``
-    resolved on JAX's bucket (:func:`bucket_size`): 'auto' is direct up
-    to a 256-node bucket and PCG above.
-
-    Direct and PCG solve the live prefix. The dead nodes and invalid edges
-    of a larger JAX bucket contribute decoupled identity blocks and zero
-    residuals: a dead node has b = 0 and couples to nothing but its own
-    identity diagonal, so its entries of the direct solution, and of PCG's
-    x, r and p at every step, stay exactly 0, and the live-size solve
-    gives the bucket's poses. Schur solves the bucket itself, the prefix
-    of ``bucket`` nodes and ``E·bucket/K`` edges as JAX's branch does,
-    because its chunks are laid out from node 0 and must divide the size.
-    """
+    host ints; the stores are prefix-filled) on JAX's bucket
+    (:func:`bucket_size`), with ``linear_solver`` resolved there: 'auto'
+    is direct up to a 256-node bucket and PCG above."""
     K, E = nodes.t.shape[0], edges.i.shape[0]
     bucket = bucket_size(node_count, edge_count, K, E, min_bucket)
-    solver = resolve_linear_solver(linear_solver, bucket)
-    if solver == "schur":
-        n, eb = bucket, max(1, (E * bucket) // K)
-        # invalid edges past the count may hold stale indices beyond the
-        # bucket; they add nothing, so they are pointed at node 0
-        sub = EdgeSet(
-            i=torch.where(edges.valid[:eb], edges.i[:eb], 0),
-            j=torch.where(edges.valid[:eb], edges.j[:eb], 0),
-            rel_t=edges.rel_t[:eb], rel_q=edges.rel_q[:eb], info=edges.info[:eb],
-            valid=edges.valid[:eb], count=torch.clamp(edges.count, max=eb),
-            overflow=edges.overflow,
-        )
-    else:
-        n, sub = max(node_count, 1), live_edges(edges, edge_count)
+    return solve_bucket(
+        nodes, edges, node_mask, bucket, resolve_linear_solver(linear_solver, bucket), **kw
+    )
+
+
+def solve_bucket(
+    nodes: Pose,
+    edges: EdgeSet,
+    node_mask: torch.Tensor,
+    bucket: int,
+    linear_solver: str,
+    **kw,
+) -> Tuple[Pose, SolveStats]:
+    """:func:`optimize` on the prefix of ``bucket`` nodes and ``E·bucket/K``
+    edges, as JAX's ``optimize_bucketed`` branch solves it; the shapes
+    depend on the bucket alone.
+
+    The dead nodes and invalid edges of the prefix add decoupled identity
+    blocks and zero residuals, so the poses are those of a solve at the
+    live size. Invalid edges past the count may hold stale indices beyond
+    the bucket (a CUDA gather out of range would abort the context); they
+    add exact zeros, so they are spread over the bucket's nodes (edge e
+    on node e mod bucket), which keeps the card's sorted accumulation
+    from queueing them all on one node.
+    """
+    K, E = nodes.t.shape[0], edges.i.shape[0]
+    n, eb = bucket, max(1, (E * bucket) // K)
+    valid = edges.valid[:eb]
+    spread = (torch.arange(eb, device=valid.device) % n).to(edges.i.dtype)
+    sub = EdgeSet(
+        i=torch.where(valid, edges.i[:eb], spread), j=torch.where(valid, edges.j[:eb], spread),
+        rel_t=edges.rel_t[:eb], rel_q=edges.rel_q[:eb], info=edges.info[:eb], valid=valid,
+        count=torch.clamp(edges.count, max=eb), overflow=edges.overflow,
+    )
     opt, stats = optimize(
-        Pose(t=nodes.t[:n], q=nodes.q[:n]), sub, node_mask[:n], linear_solver=solver, **kw,
+        Pose(t=nodes.t[:n], q=nodes.q[:n]), sub, node_mask[:n], linear_solver=linear_solver, **kw,
     )
     full = Pose(t=nodes.t.clone(), q=nodes.q.clone())
     full.t[:n] = opt.t
@@ -469,20 +495,24 @@ def optimize_bucketed(
 def _window_normal_equations(
     nodes: Pose,
     edges: EdgeSet,
-    start: int,
+    start: torch.Tensor,
     window: int,
     local_mask: torch.Tensor,
-    anchor_weight: float,
+    anchor_weight: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(W, 6, W, 6) H and (W, 6) b of the window ``[start, start+W)``.
+    """(W, 6, W, 6) H and (W, 6) b of the window ``[start, start+W)``
+    (``start`` a 0-d device tensor).
 
     Exact conditioning on the frozen prefix: an edge endpoint outside the
     window has its Jacobian zeroed, which removes its rows and columns
     from H while its residual stays evaluated at the frozen pose — an
     edge into the prefix becomes a unary prior on its in-window endpoint.
-    Window-relative indices are clipped to ``[0, W)``; a clipped endpoint
-    has a zero Jacobian, so what it adds is zero. The gauge anchor goes
-    on window node 0 with ``anchor_weight`` (0 unless ``start == 0``).
+    An endpoint outside the window has a zero Jacobian, and an invalid edge
+    zero information, so what they add is zero wherever it lands: edge e's
+    lands on window node e mod W, which keeps the card's sorted
+    accumulation from queueing every such edge on one node. The gauge
+    anchor goes on window node 0 with ``anchor_weight`` (0 unless
+    ``start == 0``).
     """
     W = window
     dt, dev = nodes.t.dtype, nodes.t.device
@@ -493,8 +523,9 @@ def _window_normal_equations(
     info = edges.info * edges.valid.to(dt)[:, None, None]
     Ji = Ji * in_i[:, None, None]
     Jj = Jj * in_j[:, None, None]
-    ci = torch.clamp(ei - start, 0, W - 1)
-    cj = torch.clamp(ej - start, 0, W - 1)
+    spread = torch.arange(ei.shape[0], device=dev) % W
+    ci = torch.where((in_i > 0) & edges.valid, ei - start, spread)
+    cj = torch.where((in_j > 0) & edges.valid, ej - start, spread)
     JiT_O = Ji.mT @ info
     JjT_O = Jj.mT @ info
     Hii, Hij, Hjj = JiT_O @ Ji, JiT_O @ Jj, JjT_O @ Jj
@@ -503,15 +534,12 @@ def _window_normal_equations(
     H.index_put_((ci, cj), Hij, accumulate=True)
     H.index_put_((cj, ci), Hij.mT, accumulate=True)
     H.index_put_((cj, cj), Hjj, accumulate=True)
-    b = torch.zeros((W, 6), dtype=dt, device=dev)
-    b.index_add_(0, ci, (JiT_O @ r[..., None])[..., 0])
-    b.index_add_(0, cj, (JjT_O @ r[..., None])[..., 0])
+    b = _EndpointSum(ci, cj, W, dt)((JiT_O @ r[..., None])[..., 0], (JjT_O @ r[..., None])[..., 0])
     eye6 = torch.eye(6, dtype=dt, device=dev)
     diag = torch.arange(W, device=dev)
     H[diag, diag] += (~local_mask).to(dt)[:, None, None] * eye6
     b = b * local_mask[:, None]
-    if anchor_weight:
-        H[0, 0] += anchor_weight * eye6
+    H[0, 0] += anchor_weight * eye6
     return H.permute(0, 2, 1, 3), b
 
 
@@ -519,7 +547,7 @@ def optimize_window(
     nodes: Pose,
     edges: EdgeSet,
     node_mask: torch.Tensor,
-    node_count: int,
+    node_count,
     window: int,
     iterations: int = 10,
     mode: str = "lm",
@@ -529,30 +557,32 @@ def optimize_window(
     """Incremental solve: only the last ``window`` live nodes move,
     conditioned exactly on the frozen prefix (JAX ``optimize_window``).
 
-    ``node_count`` is a host int, so ``start = max(node_count − W, 0)`` is
-    one too and the window is a plain slice. The damping is
-    ``(λ + 1e-9)·max(scale, 1e-6)`` on each diagonal block; the LM accept
-    test compares the cost of the whole graph. The gauge anchor is added
-    only when the window starts at node 0; otherwise the frozen prefix
-    anchors it through the sequential edge ``(start−1, start)``.
-    ``optimize_window.calls`` counts the calls.
+    ``node_count`` is a 0-d int device tensor (a host int is put on the
+    device), so ``start = max(node_count − W, 0)`` stays there and the
+    window is gathered and scattered through ``start + arange(W)``; the
+    edges are the whole store with its valid mask. The shapes depend on W,
+    K and E alone. The damping is ``(λ + 1e-9)·max(scale, 1e-6)`` on each
+    diagonal block; the LM accept test compares the cost of the whole
+    graph. The gauge anchor is added only when the window starts at node
+    0; otherwise the frozen prefix anchors it through the sequential edge
+    ``(start−1, start)``. ``optimize_window.calls`` counts the calls.
     """
     optimize_window.calls += 1
     K = nodes.t.shape[0]
     W = min(window, K)
-    start = max(node_count - W, 0)
-    dev = nodes.t.device
-    local_mask = (torch.arange(W, device=dev) + start < node_count) & node_mask[start : start + W]
-    aw = anchor_weight if start == 0 else 0.0
+    dt, dev = nodes.t.dtype, nodes.t.device
+    if not isinstance(node_count, torch.Tensor):
+        node_count = torch.full((), node_count, dtype=torch.int32, device=dev)
+    start = torch.clamp(node_count.long() - W, min=0)
+    ids = start + torch.arange(W, device=dev)
+    local_mask = (ids < node_count) & node_mask[ids]
+    aw = (start == 0).to(dt) * anchor_weight
 
     def step(nds: Pose, lam) -> Pose:
         H, b = _window_normal_equations(nds, edges, start, W, local_mask, aw)
-        win = Pose(t=nds.t[start : start + W], q=nds.q[start : start + W])
+        win = Pose(t=nds.t[ids], q=nds.q[ids])
         new = _solve_and_update(win, H, b, lam + 1e-9, local_mask)
-        t, q = nds.t.clone(), nds.q.clone()
-        t[start : start + W] = new.t
-        q[start : start + W] = new.q
-        return Pose(t=t, q=q)
+        return Pose(t=nds.t.index_copy(0, ids, new.t), q=nds.q.index_copy(0, ids, new.q))
 
     return _gn_or_lm(step, nodes, edges, iterations, mode, init_damping)
 

@@ -3,6 +3,7 @@
     python -m icpslam_tpu_torch.io.runner --synthetic --poses 20
     python -m icpslam_tpu_torch.io.runner --kitti-proxy --no-proxy-physics --poses 40
     python -m icpslam_tpu_torch.io.runner --kitti-proxy --no-proxy-physics --config my.yaml
+    python -m icpslam_tpu_torch.io.runner --synthetic --poses 20 --deferred-optimize --trace DIR
 
 ``--synthetic`` is the room loop of the JAX runner (``icpslam_tpu/io/runner.py``)
 with its default config; ``--kitti-proxy --no-proxy-physics`` the urban
@@ -12,17 +13,22 @@ then), as the JAX runner's flag does. The run prints ATE/RPE against the
 ground truth and a one-line JSON summary, including the host syncs and
 kernel launches per scan, the window, full and PCG graph solves, the
 keyframe evictions and the edges dropped at a full edge store.
-``--device`` defaults to ``cuda`` and fails without a card; the CPU runs
+``--deferred-optimize`` runs the graph solve beside the stream
+(``pipeline/deferred.py``; the summary adds ``deferred_launched`` and
+``deferred_folded``), and ``--trace DIR`` writes a ``torch.profiler``
+trace of the run there (``utils/profiling.py``). ``--device`` defaults
+to ``cuda`` and fails without a card; the CPU runs
 only with ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -35,7 +41,8 @@ from icpslam_tpu_torch.graph import pose_graph
 from icpslam_tpu_torch.io import synthetic
 from icpslam_tpu_torch.ops import nn as nn_ops
 from icpslam_tpu_torch.ops import radius_stats
-from icpslam_tpu_torch.pipeline import slam
+from icpslam_tpu_torch.pipeline import deferred, slam
+from icpslam_tpu_torch.utils import profiling
 from icpslam_tpu_torch.utils.sync import to_host
 
 # the kernel wrappers, by the name the summary reports their launches under
@@ -89,10 +96,14 @@ class RunResult:
 
 
 def run_slam(
-    scans: Iterable, config: SlamConfig, initial_pose: Optional[Pose], device
+    scans: Iterable, config: SlamConfig, initial_pose: Optional[Pose], device,
+    post_step: Optional[Callable[[slam.SlamState, slam.SlamOutput], slam.SlamState]] = None,
 ) -> RunResult:
     """Host loop over ``slam_step``. ``scans`` yields ``((points, mask), stamp)``
-    numpy pairs; each step ends in a device sync so ``step_ms`` is honest."""
+    numpy pairs. ``post_step(state, out) -> state`` is called after every
+    step (the deferred back end's ``maybe_launch_or_fold``). Each step ends
+    by synchronizing the current stream, so ``step_ms`` holds the step's
+    own device work but not a solve running on another stream."""
     device = torch.device(device)
     state = slam.init_state(config, initial_pose, device=device)
     cuda = device.type == "cuda"
@@ -110,8 +121,10 @@ def run_slam(
             points=torch.from_numpy(points).to(device), mask=torch.from_numpy(mask).to(device)
         )
         state, out = slam.slam_step(state, cloud, config, stamp=stamp - origin)
+        if post_step is not None:
+            state = post_step(state, out)
         if cuda:
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         step_ms.append((time.perf_counter() - ts) * 1000.0)
         syncs.append(to_host.count - s0)
         windows.append(pose_graph.optimize_window.calls - w0)
@@ -197,6 +210,12 @@ def main(argv=None) -> int:
         help="torch device (default: cuda, which fails without a card; "
         "the CPU needs --device cpu)",
     )
+    ap.add_argument(
+        "--deferred-optimize", action="store_true",
+        help="run the graph solve beside the stream (pipeline/deferred.py)",
+    )
+    ap.add_argument("--trace", type=str, default=None,
+                    help="write a torch.profiler (Chrome/Perfetto) trace of the run to this directory")
     ap.add_argument("--summary-out", type=str, default=None)
     args = ap.parse_args(argv)
 
@@ -218,8 +237,19 @@ def main(argv=None) -> int:
         stream, gt = synthetic_source(cfg, args.poses, args.rate)
     init = Pose(t=torch.from_numpy(gt[0][0]), q=torch.from_numpy(gt[1][0]))
     init = Pose(t=init.t.to(args.device), q=init.q.to(args.device))
-    res = run_slam(stream, cfg, init, args.device)
-    summary = {**res.summary(), **evaluate(res, gt), "device": args.device}
+    backend = None
+    if args.deferred_optimize:
+        cfg = dataclasses.replace(cfg, defer_optimization=True)
+        # JAX runner.py:960-971 with one scan per step
+        backend = deferred.DeferredBackend(cfg, check_every=cfg.keyframes_window)
+    post_step = backend.maybe_launch_or_fold if backend is not None else None
+    with profiling.trace(args.trace) if args.trace else contextlib.nullcontext():
+        res = run_slam(stream, cfg, init, args.device, post_step=post_step)
+    extra = {}
+    if backend is not None:
+        res.state = backend.flush(res.state)
+        extra = dict(deferred_launched=backend.num_launched, deferred_folded=backend.num_folded)
+    summary = {**res.summary(), **evaluate(res, gt), **extra, "device": args.device}
     print(f"ATE {summary['ate_m']:.4f} m  RPE {summary['rpe_t']:.4f} m / {summary['rpe_r']:.5f} rad")
     print(json.dumps(summary))
     if args.summary_out:

@@ -10,14 +10,20 @@ goes, each through the counted :func:`~icpslam_tpu_torch.utils.sync.to_host`.
 
 At a full keyframe store the step marginalizes the most redundant
 keyframe (``graph/marginalize.py``) before it adds the new one, and it
-then reads the edge count again (one host read, on eviction scans only).
-Wheel odometry enters through :func:`ingest_wheel_odometry` and adds a
-wheel edge beside each sequential edge when ``enable_wheel_odom_edges``.
+then reads the edge count and the victim's index (one host read, on
+eviction scans only). Wheel odometry enters through
+:func:`ingest_wheel_odometry` and adds a wheel edge beside each sequential
+edge when ``enable_wheel_odom_edges``.
+
+On the card the graph solve replays a CUDA graph (``graph/captured.py``);
+on the CPU it runs eagerly. With ``defer_optimization`` the step leaves
+the solve out, and ``pipeline/deferred.py`` runs it beside the stream.
+The step makes no host-to-device copy of its own: scalars are filled on
+the device, small constants copied without a stream sync.
 
 Parts of the JAX step that are not ported yet raise ``NotImplementedError``
 naming their ROADMAP item instead of doing something else: de-skew, the
-voxel and sharded maps, the dist-* solvers, the deferred solve and
-``collect_debug``.
+voxel and sharded maps, the dist-* solvers and ``collect_debug``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from icpslam_tpu_torch.cloud import pointcloud as pc
 from icpslam_tpu_torch.geometry import se3
 from icpslam_tpu_torch.geometry.se3 import Pose
+from icpslam_tpu_torch.graph import captured as captured_mod
 from icpslam_tpu_torch.graph import keyframes as kf
 from icpslam_tpu_torch.graph import marginalize as marg
 from icpslam_tpu_torch.graph import pose_graph as pg
@@ -58,6 +65,17 @@ class SlamState(NamedTuple):
     stamp: torch.Tensor
 
 
+class HostCounts(NamedTuple):
+    """The host's copy of the state's counters after a step (no extra
+    read: the step keeps them as it goes), for a caller that must decide
+    without a device sync, such as ``pipeline/deferred.DeferredBackend``."""
+    keyframes: int
+    edges: int         # live edges, capped at the store's capacity
+    kf_since_opt: int
+    lc_since_opt: int
+    evicted: int       # the keyframe index marginalized out by this step, or -1
+
+
 class SlamOutput(NamedTuple):
     odom_out: odo.OdometryOutput
     pose_map: Pose
@@ -73,6 +91,7 @@ class SlamOutput(NamedTuple):
     packed: torch.Tensor = None  # (18,) [pose.t | pose.q | accepted, fitness,
     # n_corr, icp_iters, refined, new_keyframe, loop_closure, optimized,
     # map_size, num_keyframes, graph_cost]
+    host: Optional[HostCounts] = None
 
 
 def check_supported(config) -> None:
@@ -89,10 +108,6 @@ def check_supported(config) -> None:
             and config.max_keyframes <= config.keyframe_protect_recent + 1):
         raise ValueError(
             "keyframe_eviction='marginalize' needs max_keyframes > keyframe_protect_recent + 1"
-        )
-    if config.defer_optimization:
-        raise NotImplementedError(
-            "defer_optimization is not ported yet — ROADMAP.md Queue 1, 'the deferred solve'"
         )
     if config.graph_linear_solver not in ("auto", "direct", "pcg", "schur"):
         raise pg._not_ported(config.graph_linear_solver)
@@ -147,15 +162,20 @@ def ingest_wheel_odometry(
     )
 
 
+def _vector(values, device) -> torch.Tensor:
+    """A float32 constant on ``device``, copied without a stream sync."""
+    return torch.tensor(values, dtype=torch.float32).to(device, non_blocking=True)
+
+
 def _information(diag, device) -> torch.Tensor:
-    return torch.diag(torch.tensor(diag, dtype=torch.float32, device=device))
+    return torch.diag(_vector(diag, device))
 
 
 def _adaptive_information(H: torch.Tensor, diag) -> torch.Tensor:
     """Edge information from the registration's GN Hessian, rescaled block
     by block to the configured diagonals (see the JAX docstring)."""
     fixed = _information(diag, H.device)
-    d = torch.tensor(diag, dtype=torch.float32, device=H.device)
+    d = _vector(diag, H.device)
     t_tgt, r_tgt = d[:3].mean(), d[3:].mean()
     sym = 0.5 * (H + H.T)
     t_tr = torch.diagonal(sym[:3, :3]).sum() / 3.0
@@ -220,6 +240,41 @@ def _try_loop_closure(
     return edges, n_ok
 
 
+def graph_solve(state: SlamState, config, counts: dict, full: bool, captured=None,
+                copied=None) -> Tuple[Pose, pg.SolveStats]:
+    """The full (bucketed) or the window solve of the state's graph.
+    ``counts`` holds the host values of the keyframe and edge counts.
+
+    With ``captured`` (a ``graph/captured.CapturedSolves``) the solve is a
+    graph replay, Schur excepted; without it, it runs eagerly. ``copied``,
+    a CUDA event, is recorded once every read of ``state`` is enqueued:
+    after the copy into the graph's inputs, or after an eager solve.
+    """
+    store, edges = state.keyframes, state.edges
+    mask = store.valid_mask()
+    kw = dict(iterations=config.graph_solver_iterations, mode=config.graph_solver)
+    if full:
+        min_bucket = config.graph_bucket_min if config.graph_bucketing else store.capacity
+        bucket = pg.bucket_size(counts["keyframes"], counts["edges"], store.capacity,
+                                edges.capacity, min_bucket)
+        solver = pg.resolve_linear_solver(config.graph_linear_solver, bucket)
+        if captured is not None and solver != "schur":
+            g = captured.prepare_full(store.pose_graph, edges, mask, bucket, solver, **kw)
+        else:
+            g = None
+            out = pg.solve_bucket(store.pose_graph, edges, mask, bucket, solver, **kw)
+    elif captured is not None:
+        g = captured.prepare_window(store.pose_graph, edges, mask, store.count,
+                                    config.graph_window, **kw)
+    else:
+        g = None
+        out = pg.optimize_window(store.pose_graph, edges, mask, store.count,
+                                 config.graph_window, **kw)
+    if copied is not None:
+        copied.record()
+    return g.run() if g is not None else out
+
+
 def _optimize(state: SlamState, config, counts: dict) -> Tuple[SlamState, torch.Tensor]:
     """The graph solve, then the map reset and the ``map→odom`` recompute.
     ``counts`` holds the host values of the keyframe, edge and
@@ -231,20 +286,10 @@ def _optimize(state: SlamState, config, counts: dict) -> Tuple[SlamState, torch.
     ``graph_window`` nodes are solved, conditioned on the frozen prefix.
     """
     store = state.keyframes
-    n_kf, n_edges, lc_since = counts["keyframes"], counts["edges"], counts["lc_since_opt"]
-    kw = dict(iterations=config.graph_solver_iterations, mode=config.graph_solver)
-    use_full = not config.graph_incremental or lc_since > 0 or n_kf <= config.graph_window
-    if use_full:
-        min_bucket = config.graph_bucket_min if config.graph_bucketing else store.capacity
-        opt_nodes, stats = pg.optimize_bucketed(
-            store.pose_graph, state.edges, store.valid_mask(), n_kf, n_edges,
-            min_bucket=min_bucket, linear_solver=config.graph_linear_solver, **kw,
-        )
-    else:
-        opt_nodes, stats = pg.optimize_window(
-            store.pose_graph, pg.live_edges(state.edges, n_edges), store.valid_mask(),
-            n_kf, config.graph_window, **kw,
-        )
+    full = (not config.graph_incremental or counts["lc_since_opt"] > 0
+            or counts["keyframes"] <= config.graph_window)
+    captured = captured_mod.for_device(store.count.device)
+    opt_nodes, stats = graph_solve(state, config, counts, full, captured)
     new_store = kf.set_graph_poses(store, opt_nodes)
     m2o = se3.compose(kf.latest(new_store), se3.inverse(kf.latest_odom(new_store)))
     new_map = map_backend.reset(state.map) if config.reset_map_on_optimize else state.map
@@ -288,7 +333,7 @@ def slam_step(
 
     # ---- 1. front-end odometry --------------------------------------------
     odom_state, oout = odo.odometry_step(state.odom, raw_scan, config, do_register, skip)
-    new_stamp = state.stamp + 1.0 if stamp is None else torch.tensor(stamp, dtype=f32, device=dev)
+    new_stamp = state.stamp + 1.0 if stamp is None else torch.full((), stamp, dtype=f32, device=dev)
     state = state._replace(odom=odom_state, stamp=new_stamp)
     raw_pose = se3.normalize(se3.compose(state.slam_pose, oout.transform))
     accepted = bool(to_host(oout.accepted)) if do_register else False
@@ -312,7 +357,7 @@ def slam_step(
         new_map, slam_pose, refined, refine_hess = r.map, r.refined_pose, r.success, r.hessian
     else:
         new_map, slam_pose = state.map, raw_pose
-        refined = torch.tensor(False, device=dev)
+        refined = torch.zeros((), dtype=torch.bool, device=dev)
         refine_hess = torch.zeros((6, 6), device=dev)
     state = state._replace(map=new_map, slam_pose=slam_pose)
 
@@ -334,7 +379,7 @@ def slam_step(
         seq_info = _information(config.icp_information, dev)
     pose_cov = torch.linalg.inv_ex(seq_info + 1e-6 * torch.eye(6, device=dev))[0]
 
-    kf_idx, loop_added = -1, 0
+    kf_idx, loop_added, evicted = -1, 0, -1
     if want_kf:
         if n_kf >= state.keyframes.capacity:
             # a full store: marginalize the most redundant keyframe first
@@ -346,8 +391,9 @@ def slam_step(
             store, edges = marg.marginalize_keyframe(state.keyframes, state.edges, victim)
             state = state._replace(keyframes=store, edges=edges)
             n_kf -= 1
-            # fusion and compaction changed the edge count
-            n_edges = int(to_host(edges.count))
+            # fusion and compaction changed the edge count; the victim's
+            # index joins the read for a deferred solve in flight
+            n_edges, evicted = (int(v) for v in to_host(torch.stack([edges.count, victim])))
         node_pose = se3.normalize(se3.compose(state.map_to_odom, slam_pose))
         prev_idx = max(n_kf - 1, 0)
         prev_odom = kf.latest_odom(state.keyframes)
@@ -389,20 +435,21 @@ def slam_step(
             )
 
     # ---- 4. graph optimization ---------------------------------------------
-    do_opt = want_kf and kf_since >= config.keyframes_window
+    # with defer_optimization the solve leaves the step (JAX slam.py:662-668)
+    do_opt = want_kf and kf_since >= config.keyframes_window and not config.defer_optimization
+    # the edge store drops at capacity, so the live count is capped
+    n_edges = min(n_edges, state.edges.capacity)
     if do_opt:
-        # the edge store drops at capacity, so the live count is capped
-        counts = dict(
-            keyframes=n_kf, edges=min(n_edges, state.edges.capacity), lc_since_opt=lc_since
-        )
+        counts = dict(keyframes=n_kf, edges=n_edges, lc_since_opt=lc_since)
         state, opt_cost = _optimize(state, config, counts)
+        kf_since = lc_since = 0
     else:
-        opt_cost = torch.tensor(float("inf"), device=dev)
+        opt_cost = torch.full((), float("inf"), device=dev)
 
     pose_map = se3.normalize(se3.compose(state.map_to_odom, state.slam_pose))
-    want_t = torch.tensor(want_kf, device=dev)
-    loop_t = torch.tensor(loop_added, dtype=i32, device=dev)
-    opt_t = torch.tensor(do_opt, device=dev)
+    want_t = torch.full((), want_kf, dtype=torch.bool, device=dev)
+    loop_t = torch.full((), loop_added, dtype=i32, device=dev)
+    opt_t = torch.full((), do_opt, dtype=torch.bool, device=dev)
     map_total = map_backend.total_size(state.map)
     packed = torch.cat([
         pose_map.t.to(f32).reshape(-1), pose_map.q.to(f32).reshape(-1),
@@ -418,7 +465,7 @@ def slam_step(
         pose_map=pose_map,
         refined=refined,
         new_keyframe=want_t,
-        keyframe_index=torch.tensor(kf_idx, dtype=i32, device=dev),
+        keyframe_index=torch.full((), kf_idx, dtype=i32, device=dev),
         loop_closure=loop_t,
         optimized=opt_t,
         graph_cost=opt_cost,
@@ -426,5 +473,7 @@ def slam_step(
         num_keyframes=state.keyframes.count,
         pose_cov=pose_cov,
         packed=packed,
+        host=HostCounts(keyframes=n_kf, edges=n_edges, kf_since_opt=kf_since,
+                        lc_since_opt=lc_since, evicted=evicted),
     )
     return state, out

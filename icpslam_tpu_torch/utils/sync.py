@@ -4,7 +4,10 @@ Every place where the port's host control flow needs a device value (the
 counterparts of the JAX package's ``lax.cond`` / ``while_loop``
 predicates) reads it through :func:`to_host`. On a CUDA tensor each call
 is one device synchronisation; ``to_host.count`` counts them so a run can
-report host syncs per scan.
+report host syncs per scan. Syncs that PyTorch makes on its own (a
+blocking host-to-device copy, a Python scalar written into a CUDA
+tensor, a stream synchronize) are not counted here; ``chip_smoke.py``
+phase 12 counts them with ``torch.cuda.set_sync_debug_mode("warn")``.
 """
 
 from __future__ import annotations

@@ -21,7 +21,15 @@ and at a tile's box edge just inside r); K3's pair counter must equal
   abs + 1e-5 rel (the sums are reduced in another order);
 - K4 (matmul-form 1-NN): d² within 4e-7·(|q_c|² + |t_c|²) + 1e-6, the
   rounding of the form, and a differing pick only where the two picks'
-  exact d² lie that close.
+  exact d² lie that close;
+- the captured graph solves (``graph/captured.py``) against the eager
+  solve on the card, per bucket (direct at 64, 128 and 256 nodes, PCG at
+  512) and for the window solve: poses within 1e-4 m, final cost within
+  1e-4 relative (the node sums take no atomics on the card, so the two
+  agree to the bit; the tolerance allows the rounding of another order);
+- the endpoint sums of the solves on the card (products with the
+  incidence matrices) against ``index_add_`` on the CPU: within 1e-4 on
+  sums of ~64 terms of size ~1, and equal to the bit from run to run.
 """
 
 import numpy as np
@@ -30,6 +38,10 @@ import torch
 
 from icpslam_tpu_torch.cloud.pointcloud import PointCloud
 from icpslam_tpu_torch.cloud.voxel import voxel_downsample
+from icpslam_tpu_torch.geometry import se3
+from icpslam_tpu_torch.geometry.se3 import Pose
+from icpslam_tpu_torch.graph import captured
+from icpslam_tpu_torch.graph import pose_graph as tpg
 from icpslam_tpu_torch.ops import nn as tnn
 from icpslam_tpu_torch.ops import radius_stats as trs
 
@@ -351,3 +363,109 @@ def test_wrappers_raise_on_bad_input(dev):
         trs.radius_moments_cuda(q.T.contiguous().T, q, m, 1.0)
     with pytest.raises(ValueError):
         tnn.nn1_matmul_cuda(q, q, m.cpu())
+
+
+def _loop_graph(n, n_edges, dev, K=512, E=2048, seed=0):
+    """n live nodes of a 512-node store on three noisy laps: the chain and
+    loop edges a lap or two apart, measured with noise; the guess drifts."""
+    rng = np.random.RandomState(seed + n)
+    theta = np.linspace(0, 6 * np.pi, n, endpoint=False)
+    t = np.zeros((K, 3))
+    t[:n] = np.c_[20 * np.cos(theta), 20 * np.sin(theta), 0.5 * np.sin(3 * theta)]
+    q = np.tile([1.0, 0, 0, 0], (K, 1))
+    q[:n, 0], q[:n, 3] = np.cos(theta / 2 + np.pi / 4), np.sin(theta / 2 + np.pi / 4)
+    truth = Pose(torch.tensor(t, dtype=torch.float32), torch.tensor(q, dtype=torch.float32))
+    pairs = [(k, k + 1) for k in range(n - 1)]
+    lap = max(n // 3, 2)
+    while len(pairs) < n_edges:
+        a = int(rng.randint(0, n - lap))
+        pairs.append((a, min(n - 1, a + lap * int(rng.randint(1, 3)) + int(rng.randint(-3, 4)))))
+    pairs = [(a, b) for a, b in pairs if a != b]
+    ii = torch.tensor([a for a, _ in pairs])
+    jj = torch.tensor([b for _, b in pairs])
+    m = len(pairs)
+    rel = se3.compose(se3.relative(se3.index(truth, ii), se3.index(truth, jj)),
+                      se3.se3_exp(torch.tensor(rng.randn(m, 6) * 0.01, dtype=torch.float32)))
+    edges = tpg.empty_edges(E)
+    edges = edges._replace(
+        i=edges.i.index_copy(0, torch.arange(m), ii.int()),
+        j=edges.j.index_copy(0, torch.arange(m), jj.int()),
+        rel_t=edges.rel_t.index_copy(0, torch.arange(m), rel.t),
+        rel_q=edges.rel_q.index_copy(0, torch.arange(m), rel.q),
+        info=edges.info * 100.0, valid=torch.arange(E) < m,
+        count=torch.tensor(m, dtype=torch.int32),
+    )
+    d = np.zeros((K, 6))
+    d[1:n] = np.cumsum(rng.randn(n - 1, 6) * 0.01, axis=0)
+    nodes = se3.normalize(se3.compose(truth, se3.se3_exp(torch.tensor(d, dtype=torch.float32))))
+    to = lambda x: x.to(dev)  # noqa: E731
+    return (Pose(to(nodes.t), to(nodes.q)), tpg.EdgeSet(*(to(x) for x in edges)),
+            torch.arange(K, device=dev) < n, m)
+
+
+def _same_solve(a, b):
+    (pa, sa), (pb, sb) = a, b
+    assert float((pa.t - pb.t).norm(dim=-1).max()) <= 1e-4
+    assert float((pa.q - pb.q).abs().max()) <= 1e-4
+    assert abs(float(sa.final_cost) - float(sb.final_cost)) <= 1e-4 * abs(float(sb.final_cost))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,solver", [(50, "direct"), (100, "direct"), (200, "direct"), (400, "pcg")])
+def test_captured_full_solve_equals_eager(dev, n, solver):
+    nodes, edges, mask, m = _loop_graph(n, int(n * 1.5), dev)
+    bucket = tpg.bucket_size(n, m, 512, 2048, 64)
+    assert tpg.resolve_linear_solver("auto", bucket) == solver
+    kw = dict(iterations=3, mode="lm")
+    solves = captured.CapturedSolves(dev)
+    pcg0 = tpg.optimize.pcg_solves
+    got = solves.full(nodes, edges, mask, bucket, solver, **kw)
+    again = solves.full(nodes, edges, mask, bucket, solver, **kw)
+    assert len(solves.graphs) == 1
+    assert tpg.optimize.pcg_solves - pcg0 == (2 if solver == "pcg" else 0)
+    want = tpg.solve_bucket(nodes, edges, mask, bucket, solver, **kw)
+    torch.cuda.synchronize()
+    _same_solve(got, want)
+    _same_solve(again, want)
+    assert float(got[1].final_cost) < float(got[1].initial_cost)
+
+
+@pytest.mark.cuda
+def test_captured_window_solve_equals_eager(dev):
+    nodes, edges, mask, _ = _loop_graph(300, 450, dev)
+    count = torch.tensor(300, dtype=torch.int32, device=dev)
+    kw = dict(iterations=3, mode="lm")
+    solves = captured.CapturedSolves(dev)
+    calls = tpg.optimize_window.calls
+    got = solves.window(nodes, edges, mask, count, 64, **kw)
+    assert tpg.optimize_window.calls == calls + 1
+    want = tpg.optimize_window(nodes, edges, mask, count, 64, **kw)
+    torch.cuda.synchronize()
+    _same_solve(got, want)
+    moved = (got[0].t - nodes.t).norm(dim=-1) > 1e-6
+    assert moved[236:300].all() and not moved[:236].any()
+
+
+@pytest.mark.cuda
+def test_captured_refuses_schur_and_other_devices(dev):
+    nodes, edges, mask, m = _loop_graph(50, 60, dev)
+    solves = captured.CapturedSolves(dev)
+    with pytest.raises(ValueError, match="schur"):
+        solves.full(nodes, edges, mask, 64, "schur")
+    with pytest.raises(ValueError, match="on cpu"):
+        solves.full(Pose(nodes.t.cpu(), nodes.q.cpu()), edges, mask, 64, "direct")
+
+
+@pytest.mark.cuda
+def test_endpoint_sums_are_deterministic_and_match_index_add(dev):
+    rng = np.random.RandomState(3)
+    ei = torch.tensor(rng.randint(0, 64, 2048))
+    ej = torch.tensor(rng.randint(0, 64, 2048))
+    a = torch.tensor(rng.randn(2048, 6, 6), dtype=torch.float32)
+    b = torch.tensor(rng.randn(2048, 6, 6), dtype=torch.float32)
+    want = tpg._EndpointSum(ei, ej, 64, torch.float32)(a, b)
+    at = tpg._EndpointSum(ei.to(dev), ej.to(dev), 64, torch.float32)
+    got = at(a.to(dev), b.to(dev))
+    assert torch.equal(got, at(a.to(dev), b.to(dev)))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)

@@ -202,7 +202,6 @@ _OUT_OF_SLICE = {
     "deskew": dict(deskew_rounds=1),
     "voxel-map": dict(map_backend="voxel"),
     "sharded-map": dict(map_backend="sharded"),
-    "deferred": dict(defer_optimization=True),
     "dist-direct": dict(graph_linear_solver="dist-direct"),
 }
 
@@ -218,6 +217,7 @@ _NOW_IN_SLICE = {
     "wheel-edges": dict(enable_wheel_odom_edges=True),
     "pcg": dict(graph_linear_solver="pcg"),
     "schur": dict(graph_linear_solver="schur"),
+    "deferred": dict(defer_optimization=True),
 }
 
 

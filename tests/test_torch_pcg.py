@@ -5,8 +5,8 @@ Graphs are made with numpy from a seed and handed to both packages:
 
 - the 12-node circle with a loop edge of ``tests/test_graph.py::TestPCGSolver``,
   solved by PCG in GN and LM: poses within 1e-3 of JAX's;
-- dead nodes: PCG's step and poses stay exactly 0 there, and the
-  live-size PCG (``optimize_bucketed``) gives the bucket-size poses;
+- dead nodes: PCG's step and poses stay exactly 0 there, and
+  ``optimize_bucketed`` on 4 live nodes solves the 8-node bucket;
 - ``optimize_bucketed`` with 'auto' at K = 512, E = 2,048: 300 live nodes
   (the node count takes the 512 bucket) and 200 nodes with 1,100 edges (the
   edge count does), against JAX's ``optimize`` with 'auto' on the 512-node
@@ -179,7 +179,7 @@ def test_auto_rule_against_jax(n, n_edges):
     assert float(t_stats.final_cost) < float(t_stats.initial_cost)
     # below the 256-node bucket the same rule is the direct solve
     calls = tpg.optimize.pcg_solves
-    tpg.optimize_bucketed(nodes, es, m, 40, 39, linear_solver="auto", **kw)
+    tpg.optimize_bucketed(*_port(*_long_graph(40, 39, seed=n)), 40, 39, linear_solver="auto", **kw)
     assert tpg.optimize.pcg_solves == calls
 
 
