@@ -21,8 +21,16 @@ _PACK_BITS = (11, 11, 10)
 _INVALID_KEY = 2**31 - 1
 
 
+def _over(x: torch.Tensor, resolution: float) -> torch.Tensor:
+    """``x / resolution``, correctly rounded on every device. A CUDA tensor
+    divided by a Python scalar is multiplied by the scalar's reciprocal,
+    which moves points within an ulp of a voxel face into the next voxel;
+    a device tensor as the divisor keeps the true division."""
+    return x / torch.full((), resolution, dtype=x.dtype, device=x.device)
+
+
 def voxel_coords(points: torch.Tensor, resolution: float, mask=None) -> torch.Tensor:
-    coords = torch.floor(points / resolution).to(torch.int32)
+    coords = torch.floor(_over(points, resolution)).to(torch.int32)
     if mask is not None:
         coords = torch.where(mask[..., None], coords, torch.full_like(coords, SENTINEL))
     return coords
@@ -69,9 +77,9 @@ def voxel_downsample(
     # (≈5e-4 m at 131k raw points), a float64 one leaves the centroids
     # exact to float32 rounding
     w = sv.to(p.dtype)
-    ox = torch.floor(px / resolution) * resolution
-    oy = torch.floor(py / resolution) * resolution
-    oz = torch.floor(pz / resolution) * resolution
+    ox = torch.floor(_over(px, resolution)) * resolution
+    oy = torch.floor(_over(py, resolution)) * resolution
+    oz = torch.floor(_over(pz, resolution)) * resolution
     f64 = torch.float64
     cw = torch.cumsum(w, 0, dtype=f64)
     cx = torch.cumsum(w * (px - ox), 0, dtype=f64)

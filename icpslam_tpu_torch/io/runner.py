@@ -1,15 +1,27 @@
-"""Minimal runner + CLI: stream synthetic scans through the port's ``slam_step``.
+"""Runner + CLI: stream synthetic scans through the port's ``slam_step``.
 
     python -m icpslam_tpu_torch.io.runner --synthetic --poses 20
+    python -m icpslam_tpu_torch.io.runner --kitti-proxy --poses 500
+    python -m icpslam_tpu_torch.io.runner --kitti-proxy --deskew --poses 500
     python -m icpslam_tpu_torch.io.runner --kitti-proxy --no-proxy-physics --poses 40
     python -m icpslam_tpu_torch.io.runner --kitti-proxy --no-proxy-physics --config my.yaml
     python -m icpslam_tpu_torch.io.runner --synthetic --poses 20 --deferred-optimize --trace DIR
 
 ``--synthetic`` is the room loop of the JAX runner (``icpslam_tpu/io/runner.py``)
-with its default config; ``--kitti-proxy --no-proxy-physics`` the urban
-proxy with the idealized render under ``kitti_config()``. ``--config``
-loads the whole ``SlamConfig`` from YAML instead (PyYAML is needed only
-then), as the JAX runner's flag does. The run prints ATE/RPE against the
+with its default config; ``--kitti-proxy`` the urban proxy under
+``kitti_config()``, rendered with the sensor physics as the JAX runner
+renders it (motion distortion across the sweep, range-dependent noise, 8%
+dropout, moving traffic) and then registered with the in-loop coupled
+de-skew with the freed source twist, which the run turns on when no
+de-skew flag is given. ``--deskew`` de-skews at ingest with a noisy INS
+instead, ``--deskew-rounds`` / ``--deskew-mode`` and the other
+``--deskew-*`` flags set the in-loop de-skew, and ``--no-proxy-physics``
+gives the idealized render. ``--scan-cache FILE`` keeps the rendered scans
+in an ``.npz`` (the JAX runner's format) and re-renders when they were
+made with other physics flags. ``--config`` loads the whole
+``SlamConfig`` from YAML instead (PyYAML is needed only then), and
+``--voxel``, ``--map-resolution`` and the ``--max-*`` flags override it.
+The run prints ATE/RPE against the
 ground truth and a one-line JSON summary, including the host syncs and
 kernel launches per scan, the window, full and PCG graph solves, the
 keyframe evictions and the edges dropped at a full edge store.
@@ -27,6 +39,8 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
+import sys
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -39,6 +53,7 @@ from icpslam_tpu_torch.eval import metrics
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph import pose_graph
 from icpslam_tpu_torch.io import synthetic
+from icpslam_tpu_torch.mapping import backend as map_backend
 from icpslam_tpu_torch.ops import nn as nn_ops
 from icpslam_tpu_torch.ops import radius_stats
 from icpslam_tpu_torch.pipeline import deferred, slam
@@ -83,7 +98,8 @@ class RunResult:
             "pcg_solves": int(sum(self.pcg_solves)),
             "evictions": int(self.state.keyframes.evictions),
             "edge_overflow": int(self.state.edges.overflow),
-            "map_size": int(self.state.map.size),
+            "map_size": int(map_backend.total_size(self.state.map)),
+            "map_overflow": int(map_backend.total_overflow(self.state.map)),
             "host_syncs_per_scan": float(np.mean(self.host_syncs)) if self.host_syncs else 0.0,
         }
         for name, per_scan in self.launches.items():
@@ -174,11 +190,50 @@ def synthetic_source(config: SlamConfig, poses: int, rate: float):
     return stream, gt
 
 
-def kitti_proxy_source(config: SlamConfig, poses: int, rate: float):
-    """The urban proxy, idealized render: (scan stream, ground truth)."""
+def proxy_physics() -> dict:
+    """The sensor-physics render options of the JAX runner's
+    ``--kitti-proxy`` (``velodyne_stream`` keywords)."""
+    return dict(distortion=True, dynamic=synthetic.make_moving_objects(seed=0),
+                noise_range_coeff=3e-4, dropout=0.08)
+
+
+def kitti_proxy_source(config: SlamConfig, poses: int, rate: float,
+                       physics: bool = False, deskew: bool = False):
+    """The urban proxy: (scan stream, ground truth). With no option the
+    idealized render; ``physics`` renders with ``proxy_physics()``, and
+    ``deskew`` then de-skews each scan at ingest with the noisy INS."""
+    if deskew and not physics:
+        raise ValueError("deskew undoes the physics render's motion distortion")
     world = synthetic.make_urban_world(seed=0)
     gt = synthetic.make_urban_drive(n_poses=poses, rate_hz=rate)
-    return synthetic.velodyne_stream(world, gt, capacity=config.max_raw_points, rate_hz=rate), gt
+    kw = dict(proxy_physics(), deskew=deskew) if physics else {}
+    return synthetic.velodyne_stream(
+        world, gt, capacity=config.max_raw_points, rate_hz=rate, **kw), gt
+
+
+def cached_proxy_source(path: str, config: SlamConfig, poses: int, rate: float,
+                        physics: bool, deskew: bool):
+    """``kitti_proxy_source`` through the scan cache at ``path``: its scans
+    when its ``tag`` matches the physics flags (1 for physics, +2 for the
+    INS de-skew), else a fresh render written there."""
+    tag = int(physics) + 2 * int(deskew and physics)
+    if os.path.exists(path):
+        data = np.load(path)
+        if "tag" in data and int(data["tag"]) == tag:
+            n = min(poses, int(data["gt_t"].shape[0]))
+            if n < poses:
+                print(f"scan cache {path} holds only {n} scans; running {n}", file=sys.stderr)
+            gt = (data["gt_t"][:n], data["gt_q"][:n])
+            scans = [(synthetic.pad(data[f"s{i}"], config.max_raw_points), i / rate)
+                     for i in range(n)]
+            return scans, gt
+        print(f"scan cache {path} was rendered with other physics flags; re-rendering",
+              file=sys.stderr)
+    stream, gt = kitti_proxy_source(config, poses, rate, physics, deskew)
+    scans = list(stream)
+    np.savez_compressed(path, gt_t=gt[0], gt_q=gt[1], tag=tag,
+                        **{f"s{i}": p[m] for i, ((p, m), _) in enumerate(scans)})
+    return scans, gt
 
 
 def evaluate(res: RunResult, gt) -> dict:
@@ -188,6 +243,36 @@ def evaluate(res: RunResult, gt) -> dict:
     return {"ate_m": ate_m, "rpe_t": rpe_t, "rpe_r": rpe_r}
 
 
+# size flags, as the JAX runner's, over any config source
+_SIZE_FLAGS = {
+    "voxel": "voxel_leaf_size", "map_resolution": "map_resolution",
+    "max_points": "max_points", "max_raw_points": "max_raw_points",
+}
+
+
+def _apply_deskew_flags(cfg: SlamConfig, args, kitti_physics: bool) -> SlamConfig:
+    """JAX runner.py:922-950: the physics proxy turns on the coupled
+    free-twist de-skew unless a de-skew flag is given; then the flags."""
+    if kitti_physics and not args.deskew and args.deskew_rounds is None:
+        cfg = cfg.replace(deskew_rounds=1, deskew_free_twist=True)
+        print("physics proxy: no-INS de-skew on by default (coupled free-twist; "
+              "--deskew-rounds 0 to disable)", file=sys.stderr)
+    kw = {}
+    if args.deskew_rounds is not None:
+        kw["deskew_rounds"] = args.deskew_rounds
+    if args.deskew_mode is not None:
+        kw["deskew_mode"] = args.deskew_mode
+    if args.deskew_free_twist:
+        kw["deskew_free_twist"] = True
+    if args.deskew_prior_weight is not None:
+        kw["deskew_prior_weight"] = args.deskew_prior_weight
+    if args.deskew_prior_huber is not None:
+        kw["deskew_prior_huber"] = args.deskew_prior_huber
+    if args.deskew_auto_prior is not None:
+        kw["deskew_auto_prior"] = args.deskew_auto_prior == "on"
+    return cfg.replace(**kw) if kw else cfg
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     src = ap.add_mutually_exclusive_group(required=True)
@@ -195,14 +280,39 @@ def main(argv=None) -> int:
     src.add_argument("--kitti-proxy", action="store_true", help="urban proxy (kitti_config)")
     ap.add_argument(
         "--no-proxy-physics", action="store_true",
-        help="(--kitti-proxy) idealized render; required — the sensor-physics "
-        "render needs de-skew, which is not ported yet",
+        help="(--kitti-proxy) the idealized render: no motion distortion, range noise, "
+        "dropout or traffic",
+    )
+    ap.add_argument(
+        "--deskew", action="store_true",
+        help="(--kitti-proxy) undo the motion distortion at ingest with a noisy-INS "
+        "relative-motion measurement",
+    )
+    ap.add_argument("--deskew-rounds", type=int, default=None,
+                    help="in-loop de-skew without an INS (config.deskew_rounds)")
+    ap.add_argument("--deskew-mode", choices=["coupled", "joint", "alternate"], default=None,
+                    help="in-loop de-skew estimator (config.deskew_mode)")
+    ap.add_argument("--deskew-prior-weight", type=float, default=None,
+                    help="information of the sweep-twist prior (config.deskew_prior_weight)")
+    ap.add_argument("--deskew-prior-huber", type=float, default=None,
+                    help="Huber scale of the twist prior (config.deskew_prior_huber)")
+    ap.add_argument("--deskew-free-twist", action="store_true",
+                    help="(coupled) free the source sweep twist (config.deskew_free_twist)")
+    ap.add_argument("--deskew-auto-prior", choices=["on", "off"], default=None,
+                    help="(free twist) latched straight/turn prior (config.deskew_auto_prior)")
+    ap.add_argument(
+        "--scan-cache", type=str, default=None,
+        help="(--kitti-proxy) keep the rendered scans in this .npz and reuse them",
     )
     ap.add_argument(
         "--config", type=str, default=None,
         help="load the SlamConfig from this YAML file (needs PyYAML) instead "
         "of the source's default config",
     )
+    ap.add_argument("--voxel", type=float, default=None, help="voxel leaf size (m)")
+    ap.add_argument("--map-resolution", type=float, default=None, help="map resolution (m)")
+    ap.add_argument("--max-points", type=int, default=None, help="filtered scan capacity")
+    ap.add_argument("--max-raw-points", type=int, default=None, help="raw scan capacity")
     ap.add_argument("--poses", type=int, default=40)
     ap.add_argument("--rate", type=float, default=10.0)
     ap.add_argument(
@@ -224,17 +334,24 @@ def main(argv=None) -> int:
             f"--device {args.device}: torch.cuda.is_available() is False; "
             "pass --device cpu to run on the CPU"
         )
+    physics = args.kitti_proxy and not args.no_proxy_physics
+    if args.deskew and not physics:
+        raise SystemExit("--deskew undoes the motion distortion of the physics render; "
+                         "it does nothing without it (--no-proxy-physics, --synthetic)")
+    sizes = {f: getattr(args, d) for d, f in _SIZE_FLAGS.items() if getattr(args, d) is not None}
     if args.kitti_proxy:
-        if not args.no_proxy_physics:
-            raise NotImplementedError(
-                "the sensor-physics proxy needs in-loop de-skew, which is not "
-                "ported yet — ROADMAP.md Queue 1, 'de-skew'; pass --no-proxy-physics"
-            )
         cfg = from_yaml(args.config) if args.config else kitti_config()
-        stream, gt = kitti_proxy_source(cfg, args.poses, args.rate)
+        cfg = cfg.replace(**sizes)
+        if args.scan_cache:
+            stream, gt = cached_proxy_source(args.scan_cache, cfg, args.poses, args.rate,
+                                             physics, args.deskew)
+        else:
+            stream, gt = kitti_proxy_source(cfg, args.poses, args.rate, physics, args.deskew)
     else:
         cfg = from_yaml(args.config) if args.config else synthetic_config()
+        cfg = cfg.replace(**sizes)
         stream, gt = synthetic_source(cfg, args.poses, args.rate)
+    cfg = _apply_deskew_flags(cfg, args, physics)
     init = Pose(t=torch.from_numpy(gt[0][0]), q=torch.from_numpy(gt[1][0]))
     init = Pose(t=init.t.to(args.device), q=init.q.to(args.device))
     backend = None
@@ -249,7 +366,9 @@ def main(argv=None) -> int:
     if backend is not None:
         res.state = backend.flush(res.state)
         extra = dict(deferred_launched=backend.num_launched, deferred_folded=backend.num_folded)
-    summary = {**res.summary(), **evaluate(res, gt), **extra, "device": args.device}
+    summary = {**res.summary(), **evaluate(res, gt), **extra, "device": args.device,
+               "deskew_rounds": cfg.deskew_rounds, "deskew_mode": cfg.deskew_mode,
+               "deskew_free_twist": cfg.deskew_free_twist}
     print(f"ATE {summary['ate_m']:.4f} m  RPE {summary['rpe_t']:.4f} m / {summary['rpe_r']:.5f} rad")
     print(json.dumps(summary))
     if args.summary_out:

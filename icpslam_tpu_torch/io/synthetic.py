@@ -3,9 +3,13 @@ the producers of ``icpslam_tpu/io/synthetic.py`` that the runner uses).
 
 Same seeds, same arrays as the JAX package: the room loop
 (``make_room_world``, ``make_loop_trajectory``, ``render_scan``,
-``scan_stream``) and the KITTI-scale urban proxy with the idealized render
-(``make_urban_world``, ``make_urban_drive``, ``render_velodyne_scan``,
-``velodyne_stream`` — no motion distortion, dropout or traffic).
+``scan_stream``) and the KITTI-scale urban proxy (``make_urban_world``,
+``make_urban_drive``, ``render_velodyne_scan``, ``velodyne_stream``),
+idealized by default or with the sensor physics of the JAX render:
+motion distortion across the sweep, range-dependent noise, dropout and
+moving traffic (``make_moving_objects``), and the INS de-skew at ingest
+(``ins_relative_motion``, ``deskew_scan``). Every ``RandomState`` is drawn
+in the JAX version's order, so a seed gives the JAX version's points.
 Trajectories are ``(t (T, 3), q (T, 4))`` float32 arrays; streams yield
 padded ``(points (C, 3) float32, mask (C,) bool)`` numpy pairs, and the
 caller moves them to its device.
@@ -238,9 +242,37 @@ def make_urban_drive(
     return pos.astype(np.float32), _yaw_quats(yaw).astype(np.float32)
 
 
+def _quat_slerp_np(q0: np.ndarray, q1: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """Slerp q0→q1 at fractions u (n,) → (n, 4), wxyz, float64."""
+    q0 = q0 / np.linalg.norm(q0)
+    q1 = q1 / np.linalg.norm(q1)
+    d = float(np.dot(q0, q1))
+    if d < 0:
+        q1, d = -q1, -d
+    if d > 0.9995:  # nearly parallel: lerp + renorm
+        out = q0[None, :] + u[:, None] * (q1 - q0)[None, :]
+        return out / np.linalg.norm(out, axis=-1, keepdims=True)
+    th = np.arccos(np.clip(d, -1, 1))
+    s = np.sin(th)
+    a = np.sin((1 - u) * th) / s
+    b = np.sin(u * th) / s
+    return a[:, None] * q0[None, :] + b[:, None] * q1[None, :]
+
+
 def _quat_rot_np(q: np.ndarray, v: np.ndarray) -> np.ndarray:
     uv = 2.0 * np.cross(q[:, 1:], v)
     return v + q[:, 0:1] * uv + np.cross(q[:, 1:], uv)
+
+
+def _quat_mul_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+    return np.array([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ])
 
 
 def render_velodyne_scan(
@@ -253,12 +285,23 @@ def render_velodyne_scan(
     max_range: float = 80.0,
     min_range: float = 2.5,
     noise: float = 0.02,
+    noise_range_coeff: float = 0.0,
+    dropout: float = 0.0,
     seed: int = 0,
     max_points: Optional[int] = None,
-) -> np.ndarray:
+    next_pose_t: Optional[np.ndarray] = None,
+    next_pose_q: Optional[np.ndarray] = None,
+    return_times: bool = False,
+):
     """64-beam spinning lidar with a spherical z-buffer (nearest return per
-    beam × azimuth cell), idealized: no motion distortion, no dropout, and
-    range-independent noise. (n, 3) float32 in the sensor frame."""
+    beam × azimuth cell): (n, 3) float32 in the sweep-start sensor frame,
+    and with ``return_times`` the per-point sweep fraction (n,) float32.
+
+    The defaults are the idealized render. ``next_pose_t/q`` re-measure
+    each hit from the sensor pose interpolated (lerp, slerp) to its
+    azimuth's capture time (motion distortion); the noise along the ray
+    has σ(r) = ``noise`` + ``noise_range_coeff``·r; each return is lost
+    with probability ``dropout``."""
     rng = np.random.RandomState(seed)
     d = np.linalg.norm(world - np.asarray(pose_t, np.float32)[None, :], axis=-1)
     near = world[(d <= max_range) & (d >= min_range * 0.5)]
@@ -269,7 +312,7 @@ def render_velodyne_scan(
     ).astype(np.float32)
     r = np.linalg.norm(local, axis=-1)
     keep = (r >= min_range) & (r <= max_range)
-    local, r = local[keep], r[keep]
+    local, r, near = local[keep], r[keep], near[keep]
     az = np.arctan2(local[:, 1], local[:, 0])
     el = np.degrees(np.arcsin(np.clip(local[:, 2] / np.maximum(r, 1e-9), -1, 1)))
     lo, hi = elevation_range
@@ -278,6 +321,7 @@ def render_velodyne_scan(
     abin = np.floor((az + np.pi) / (2 * np.pi) * azimuth_bins).astype(np.int64)
     abin = np.clip(abin, 0, azimuth_bins - 1)
     local, r, beam, abin = local[in_fov], r[in_fov], beam[in_fov], abin[in_fov]
+    world_pts = near[in_fov]
     cell = beam * azimuth_bins + abin
     order = np.lexsort((r, cell))
     cell_sorted = cell[order]
@@ -285,14 +329,122 @@ def render_velodyne_scan(
     first[1:] = cell_sorted[1:] != cell_sorted[:-1]
     hits = local[order][first]
     rr = r[order][first]
-    if noise:
-        sigma = noise + 0.0 * rr  # float32, as the JAX version's σ(r) with no range term
+    world_hits = world_pts[order][first]
+    frac = (abin[order][first].astype(np.float64) + 0.5) / azimuth_bins
+    if next_pose_t is not None:
+        # each world hit seen from the sensor pose at its capture time,
+        # expressed in the sweep-start frame
+        u = frac
+        t_interp = (
+            np.asarray(pose_t, np.float64)[None, :] * (1 - u[:, None])
+            + np.asarray(next_pose_t, np.float64)[None, :] * u[:, None]
+        )
+        q_interp = _quat_slerp_np(
+            np.asarray(pose_q, np.float64), np.asarray(next_pose_q, np.float64), u
+        )
+        q_conj = np.c_[q_interp[:, 0], -q_interp[:, 1:]]
+        hits = _quat_rot_np(q_conj, world_hits.astype(np.float64) - t_interp)
+        rr = np.linalg.norm(hits, axis=-1)
+    if noise or noise_range_coeff:
+        sigma = noise + noise_range_coeff * rr
         scale = 1.0 + rng.randn(hits.shape[0]) * sigma / np.maximum(rr, 1e-6)
         hits = hits * scale[:, None]
+    if dropout:
+        keep_m = rng.uniform(size=hits.shape[0]) >= dropout
+        hits, frac = hits[keep_m], frac[keep_m]
     if max_points is not None and hits.shape[0] > max_points:
         sel = rng.choice(hits.shape[0], max_points, replace=False)
-        hits = hits[sel]
-    return hits.astype(np.float32)
+        hits, frac = hits[sel], frac[sel]
+    hits = hits.astype(np.float32)
+    if return_times:
+        return hits, frac.astype(np.float32)
+    return hits
+
+
+def deskew_scan(
+    points: np.ndarray,
+    rel_t: np.ndarray,
+    rel_q: np.ndarray,
+    times: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Undo the intra-sweep motion ``rel`` (start → end) under constant
+    velocity: ``p' = T(u)·p`` in the sweep-start frame, with ``u`` the
+    per-point sweep fraction (from the azimuth when ``times`` is None)."""
+    if times is None:
+        az = np.arctan2(points[:, 1], points[:, 0])
+        times = ((az + np.pi) / (2 * np.pi)).astype(np.float64)
+    u = np.asarray(times, np.float64)
+    t1 = np.asarray(rel_t, np.float64)
+    q0 = np.array([1.0, 0.0, 0.0, 0.0])
+    q_u = _quat_slerp_np(q0, np.asarray(rel_q, np.float64), u)
+    t_u = t1[None, :] * u[:, None]
+    return (_quat_rot_np(q_u, points.astype(np.float64)) + t_u).astype(np.float32)
+
+
+def make_moving_objects(
+    seed: int = 0,
+    n_vehicles: int = 6,
+    blocks: int = 3,
+    block_size: float = 80.0,
+    street_width: float = 18.0,
+    speed_range: Tuple[float, float] = (5.0, 12.0),
+    pts_per_vehicle: int = 900,
+):
+    """Box-shaped vehicles (4.5 × 1.8 × 1.6 m shells) driving along the
+    street grid: a callable ``t -> (n, 3) float32`` of their points at
+    time ``t`` seconds."""
+    rng = np.random.RandomState(seed)
+    pitch = block_size + street_width
+    extent = blocks * pitch + street_width
+    half = street_width / 2.0
+    lanes = [street_width + k * pitch - half for k in range(blocks + 1)]
+    vehicles = []
+    for _ in range(n_vehicles):
+        along_x = bool(rng.randint(2))
+        lane = lanes[rng.randint(len(lanes))] + rng.uniform(-2.0, 2.0)
+        speed = rng.uniform(*speed_range) * (1 if rng.randint(2) else -1)
+        phase = rng.uniform(0, extent)
+        n = pts_per_vehicle
+        face = rng.randint(0, 5, n)
+        lx = rng.uniform(-2.25, 2.25, n)
+        ly = rng.uniform(-0.9, 0.9, n)
+        lz = rng.uniform(0.0, 1.6, n)
+        lx = np.where(face == 0, -2.25, np.where(face == 1, 2.25, lx))
+        ly = np.where(face == 2, -0.9, np.where(face == 3, 0.9, ly))
+        lz = np.where(face == 4, 1.6, lz)
+        vehicles.append((along_x, lane, speed, phase, np.c_[lx, ly, lz]))
+
+    def at_time(t: float) -> np.ndarray:
+        parts = []
+        for along_x, lane, speed, phase, box in vehicles:
+            pos = (phase + speed * t) % extent
+            if along_x:
+                parts.append(box + np.array([pos, lane, 0.0]))
+            else:
+                # the box turned 90° for cross-street travel
+                parts.append(np.c_[box[:, 1], box[:, 0], box[:, 2]] + np.array([lane, pos, 0.0]))
+        return np.concatenate(parts).astype(np.float32)
+
+    return at_time
+
+
+def ins_relative_motion(
+    t: np.ndarray, q: np.ndarray, i: int, rng, noise_t: float, noise_r: float
+) -> Tuple[np.ndarray, np.ndarray]:
+    """A noisy INS measurement of the sensor motion over sweep ``i`` (body_i
+    → body_{i+1}): σ = ``noise_t`` m on the translation, a rotation
+    perturbation of σ = ``noise_r`` rad per axis."""
+    j = min(i + 1, t.shape[0] - 1)
+    q_conj = np.array([q[i][0], -q[i][1], -q[i][2], -q[i][3]])
+    q_conj = q_conj / np.linalg.norm(q_conj)
+    rel_q = _quat_mul_np(q_conj, q[j] / np.linalg.norm(q[j]))
+    rel_t = _quat_rot_np(q_conj[None, :], (t[j] - t[i])[None, :])[0]
+    if noise_t:
+        rel_t = rel_t + rng.randn(3) * noise_t
+    if noise_r:
+        dq = np.concatenate([[1.0], rng.randn(3) * noise_r])
+        rel_q = _quat_mul_np(rel_q, dq / np.linalg.norm(dq))
+    return rel_t, rel_q / np.linalg.norm(rel_q)
 
 
 def velodyne_stream(
@@ -301,13 +453,52 @@ def velodyne_stream(
     capacity: int,
     rate_hz: float = 10.0,
     seed: int = 0,
+    dynamic=None,
+    distortion: bool = False,
+    deskew: bool = False,
+    ins_noise_t: float = 0.01,
+    ins_noise_r: float = 0.002,
     **render_kw,
 ) -> Iterator:
-    """Idealized 64-beam scans with 10 Hz stamps: ``((points, mask), stamp)``."""
+    """64-beam scans with 10 Hz stamps: ``((points, mask), stamp)``.
+
+    ``dynamic``: a ``t -> (n, 3)`` callable of moving points added to the
+    world per scan (``make_moving_objects``); ``distortion`` smears each
+    sweep across the motion to the next pose; ``deskew`` then undoes it at
+    ingest with a noisy INS measurement (``ins_relative_motion``, its own
+    ``RandomState(seed + 90001)``). ``render_kw`` goes to
+    ``render_velodyne_scan``. The defaults are the idealized render."""
+    if deskew and distortion:
+        raw = velodyne_stream(world, trajectory, capacity, rate_hz, seed, dynamic,
+                              distortion=True, **render_kw)
+        yield from ins_deskew_stream(raw, trajectory, seed, ins_noise_t, ins_noise_r)
+        return
     t = np.asarray(trajectory[0], np.float64)
     q = np.asarray(trajectory[1], np.float64)
-    for i in range(t.shape[0]):
-        pts = render_velodyne_scan(
-            world, t[i], q[i], seed=seed + i, max_points=capacity, **render_kw
-        )
+    n = t.shape[0]
+    for i in range(n):
+        world_i = world if dynamic is None else np.concatenate([world, dynamic(i / rate_hz)])
+        kw = dict(render_kw)
+        if distortion and i + 1 < n:
+            kw.update(next_pose_t=t[i + 1], next_pose_q=q[i + 1])
+        pts = render_velodyne_scan(world_i, t[i], q[i], seed=seed + i, max_points=capacity, **kw)
         yield pad(pts, capacity), i / rate_hz
+
+
+def ins_deskew_stream(
+    scans, trajectory: Trajectory, seed: int = 0,
+    ins_noise_t: float = 0.01, ins_noise_r: float = 0.002,
+) -> Iterator:
+    """The INS de-skew of ``velodyne_stream(deskew=True)``, applied to scans
+    rendered with ``distortion=True`` (same ``trajectory`` and ``seed``),
+    so one render serves both the raw and the de-skewed drive. The last
+    scan has no next pose and passes unchanged."""
+    t = np.asarray(trajectory[0], np.float64)
+    q = np.asarray(trajectory[1], np.float64)
+    n = t.shape[0]
+    ins_rng = np.random.RandomState(seed + 90001)
+    for i, ((points, mask), stamp) in enumerate(scans):
+        if i + 1 < n:
+            rel_t, rel_q = ins_relative_motion(t, q, i, ins_rng, ins_noise_t, ins_noise_r)
+            points, mask = pad(deskew_scan(points[mask], rel_t, rel_q), mask.shape[0])
+        yield (points, mask), stamp

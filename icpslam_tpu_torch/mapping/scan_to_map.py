@@ -1,8 +1,10 @@
 """Scan-to-map refinement and map growth (port of ``icpslam_tpu/mapping/scan_to_map.py``).
 
 Transform the filtered scan with the raw odometry pose; an empty map is
-just seeded. Otherwise query the map (kernel K1, stored covariances
-gathered with the result), register the scan against the NN cloud with
+just seeded. Otherwise query the map (the point map: kernel K1, stored
+covariances gathered with the result; the voxel map: its approximate NN,
+and the target covariances computed from the NN cloud in the robot frame,
+kernel K2), register the scan against the NN cloud with
 fixed correspondences, re-query and re-register while the correction is
 large, and grow the map with the refined scan on success. The JAX
 ``map_empty`` ``cond`` and re-query ``while_loop`` become host branches.
@@ -19,6 +21,7 @@ from icpslam_tpu_torch.geometry import quaternion as quat
 from icpslam_tpu_torch.geometry import se3
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.mapping import backend as map_backend
+from icpslam_tpu_torch.mapping import point_map as pm
 from icpslam_tpu_torch.ops import icp as icp_ops
 from icpslam_tpu_torch.ops.linalg3 import rotate_sym6
 from icpslam_tpu_torch.utils.sync import to_host
@@ -52,15 +55,17 @@ def refine_and_grow(
     icfg = config.icp_mapping
     res_m = config.map_resolution
     plane = icfg.mode == "plane"
-    store_covs = plane
-    aligned_insert = config.voxel_leaf_size >= res_m
+    point_backend = isinstance(map_, pm.PointMap)
+    store_covs = plane and point_backend
+    aligned_insert = point_backend and config.voxel_leaf_size >= res_m
     dev = scan.points.device
     f32 = torch.float32
     zeros66 = torch.zeros((6, 6), device=dev)
 
-    if plane and scan_covs is None:
-        from icpslam_tpu_torch.pipeline.odometry import compute_covariances
+    # local import: pipeline/odometry.py sits above this module
+    from icpslam_tpu_torch.pipeline.odometry import compute_covariances
 
+    if plane and scan_covs is None:
         scan_covs = compute_covariances(scan, icfg)
 
     if map_empty:
@@ -94,7 +99,7 @@ def refine_and_grow(
     def one_round(pose: Pose):
         in_map = pc.transform(pose, scan)
         nn, map_covs = map_backend.query_nn_with_covs(
-            map_, in_map.points, in_map.mask, prune_beyond=prune
+            map_, in_map.points, in_map.mask, config, prune_beyond=prune
         )
         inv = se3.inverse(pose)
         nn_robot = pc.PointCloud(
@@ -105,8 +110,12 @@ def refine_and_grow(
         )
         kwargs = {}
         if plane:
-            R = quat.to_matrix(pose.q)
-            kwargs = dict(source_covs=scan_covs, target_covs=rotate_sym6(map_covs, R.T))
+            if map_covs is not None:
+                # stored map-frame covariances into the robot frame: Rᵀ C R
+                target_covs = rotate_sym6(map_covs, quat.to_matrix(pose.q).T)
+            else:
+                target_covs = compute_covariances(nn_robot, icfg)
+            kwargs = dict(source_covs=scan_covs, target_covs=target_covs)
         res = icp_ops.icp(
             scan, nn_robot, icfg,
             fixed_correspondences=config.mapping_fixed_correspondences,

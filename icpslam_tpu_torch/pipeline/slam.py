@@ -22,8 +22,8 @@ The step makes no host-to-device copy of its own: scalars are filled on
 the device, small constants copied without a stream sync.
 
 Parts of the JAX step that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP item instead of doing something else: de-skew, the
-voxel and sharded maps, the dist-* solvers and ``collect_debug``.
+naming their ROADMAP item instead of doing something else: the sharded
+map, the dist-* solvers and ``collect_debug``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ The JAX side hands its state over as NamedTuples of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, state)``); :func:`state_from_numpy`
 rebuilds the port's state from it by field name, and :func:`state_to_numpy`
 goes the other way. This is how a test starts both packages from one
-mid-mission state (non-empty map, keyframes and edges).
+mid-mission state (non-empty map, keyframes and edges; the odometry's
+skewed previous cloud and its capture fractions in coupled de-skew). The
+map is a ``PointMap`` or a ``VoxelMap`` by its fields.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph.keyframes import KeyframeStore
 from icpslam_tpu_torch.graph.pose_graph import EdgeSet
 from icpslam_tpu_torch.mapping.point_map import PointMap
+from icpslam_tpu_torch.mapping.voxel_map import VoxelMap
 from icpslam_tpu_torch.pipeline.odometry import OdometryState
 from icpslam_tpu_torch.pipeline.robot_odometry import RobotOdometryState
 from icpslam_tpu_torch.pipeline.slam import SlamState
@@ -28,7 +31,7 @@ from icpslam_tpu_torch.utils.device import resolve as resolve_device
 _FIELD_TYPES = {
     SlamState: {
         "odom": OdometryState, "robot_odom": RobotOdometryState,
-        "wheel_at_last_kf": Pose, "map": PointMap, "keyframes": KeyframeStore,
+        "wheel_at_last_kf": Pose, "map": None, "keyframes": KeyframeStore,  # map: by _map_type
         "edges": EdgeSet, "map_to_odom": Pose, "slam_pose": Pose,
     },
     OdometryState: {
@@ -36,8 +39,12 @@ _FIELD_TYPES = {
     },
     RobotOdometryState: {"first_pose": Pose, "pose": Pose, "last_gated_pose": Pose},
     KeyframeStore: {"pose_odom": Pose, "pose_graph": Pose},
-    PointMap: {}, EdgeSet: {}, Pose: {}, PointCloud: {},
+    PointMap: {}, VoxelMap: {}, EdgeSet: {}, Pose: {}, PointCloud: {},
 }
+
+
+def _map_type(tree):
+    return VoxelMap if "keys" in tree._fields else PointMap
 
 
 def _to_tensor(x, device) -> torch.Tensor:
@@ -52,15 +59,19 @@ def _build(cls, tree, device):
     sub = _FIELD_TYPES[cls]
     for name in cls._fields:
         value = getattr(tree, name)
-        kwargs[name] = _build(sub[name], value, device) if name in sub else _to_tensor(value, device)
+        if name in sub:
+            kwargs[name] = _build(sub[name] or _map_type(value), value, device)
+        else:
+            kwargs[name] = _to_tensor(value, device)
     return cls(**kwargs)
 
 
-def state_from_numpy(tree: Any, device=None) -> SlamState:
-    """The port's ``SlamState`` from the JAX state as NamedTuples of numpy
-    arrays, matched field by field by name (point-map backend), on
+def state_from_numpy(tree: Any, device=None, cls=SlamState):
+    """The port's ``SlamState`` (or another of its state types, ``cls``,
+    e.g. ``OdometryState``) from the JAX state as NamedTuples of numpy
+    arrays, matched field by field by name (point or voxel map), on
     ``device`` (default: the CUDA card; raises without one)."""
-    return _build(SlamState, tree, resolve_device(device))
+    return _build(cls, tree, resolve_device(device))
 
 
 def state_to_numpy(state: Any) -> Any:

@@ -29,7 +29,21 @@ and at a tile's box edge just inside r); K3's pair counter must equal
   agree to the bit; the tolerance allows the rounding of another order);
 - the endpoint sums of the solves on the card (products with the
   incidence matrices) against ``index_add_`` on the CPU: within 1e-4 on
-  sums of ~64 terms of size ~1, and equal to the bit from run to run.
+  sums of ~64 terms of size ~1, and equal to the bit from run to run;
+- ``coupled_deskew_icp`` on one physics scan pair at ``kitti_config()``
+  width, through K1 against the same call with K1's plain version on the
+  card: iterations and correspondence counts equal, pose and twist within
+  1e-6 (K1 equals its plain version bit for bit; the rest is the same
+  device arithmetic);
+- voxel coordinates on the card equal the CPU's on points at and next to
+  the voxel faces (the division by the resolution is correctly rounded
+  on both);
+- the voxel map's insert and ``approx_nn`` 2 km from the origin on the
+  card against the CPU: keys, sizes and hits equal, points within
+  2.5e-4 m (two float32 ulps at 2 km: the voxel filter's prefix sums run
+  in another order on the card); each query's pick at a d² within 1e-3
+  of the CPU's (a near-tie may pick another of the candidates: the d²
+  sums round in another order).
 """
 
 import numpy as np
@@ -469,3 +483,95 @@ def test_endpoint_sums_are_deterministic_and_match_index_add(dev):
     assert torch.equal(got, at(a.to(dev), b.to(dev)))
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+def _physics_pair(dev):
+    """Two consecutive physics scans of the proxy, voxel-filtered at
+    ``kitti_config()`` width (131,072 raw, 8,192 filtered), with their
+    k-NN covariances, on ``dev``."""
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import runner, synthetic
+    from icpslam_tpu_torch.ops import covariance
+
+    cfg = kitti_config()
+    world = synthetic.make_urban_world(seed=0)
+    gt = synthetic.make_urban_drive(n_poses=108)
+    traj = (gt[0][104:107], gt[1][104:107])
+    out = []
+    for (p, m), _ in list(synthetic.velodyne_stream(
+            world, traj, capacity=cfg.max_raw_points, **runner.proxy_physics()))[:2]:
+        raw = PointCloud(torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev))
+        f, _ = voxel_downsample(raw, cfg.voxel_leaf_size, cfg.max_points)
+        out.append((f, covariance.gicp_covariances(f, k=cfg.icp_odometry.covariance_knn)))
+    return cfg, out
+
+
+@pytest.mark.cuda
+def test_coupled_deskew_icp_through_k1_equals_plain(dev, monkeypatch):
+    from icpslam_tpu_torch.cloud import deskew
+    from icpslam_tpu_torch.ops import skew_icp
+
+    cfg, ((f0, c0), (f1, c1)) = _physics_pair(dev)
+    kw = dict(source_u=deskew.sweep_fraction(f1.points), source_covs=c1, target_covs=c0,
+              target_valid_len=f0.mask.sum(dtype=torch.int32), free_source_twist=True,
+              source_twist_prior_weight=cfg.deskew_prior_weight, want_hessian=True)
+    args = (f1, f0, deskew.sweep_fraction(f0.points), cfg.icp_odometry)
+    before = tnn.nn1_cuda.launches
+    k = skew_icp.coupled_deskew_icp(*args, **kw)
+    assert tnn.nn1_cuda.launches - before == int(k.iterations) > 0
+    monkeypatch.setattr(skew_icp.nn_ops, "nearest_neighbors",
+                        lambda q, t, m, valid_len=None, prune_beyond=None:
+                        tnn.nearest_neighbors_plain(q, t, m, valid_len))
+    p = skew_icp.coupled_deskew_icp(*args, **kw)
+    assert tnn.nn1_cuda.launches - before == int(k.iterations)
+    assert int(k.iterations) == int(p.iterations)
+    assert int(k.num_correspondences) == int(p.num_correspondences) > 1000
+    assert bool(k.converged)
+    for a, b in ((k.pose.t, p.pose.t), (k.pose.q, p.pose.q), (k.skew_twist, p.skew_twist)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resolution", [0.4, 0.6, 0.3])
+def test_voxel_coords_on_the_card_equal_cpu(dev, resolution):
+    from icpslam_tpu_torch.cloud.voxel import voxel_coords
+
+    k = torch.arange(-2**14, 2**14, dtype=torch.float32) * resolution  # the faces
+    faces = torch.cat([k, torch.nextafter(k, k + 1), torch.nextafter(k, k - 1)])
+    pts = faces[torch.randperm(faces.numel(), generator=torch.Generator().manual_seed(0))]
+    pts = pts[: pts.numel() // 3 * 3].reshape(-1, 3).contiguous()
+    mask = torch.ones(pts.shape[0], dtype=torch.bool)
+    want = voxel_coords(pts, resolution, mask)
+    got = voxel_coords(pts.to(dev), resolution, mask.to(dev)).cpu()
+    assert torch.equal(got, want), int((got != want).any(-1).sum())
+
+
+@pytest.mark.cuda
+def test_voxel_map_on_the_card_equals_cpu(dev):
+    from icpslam_tpu_torch.mapping import voxel_map as vm
+
+    rng = np.random.RandomState(5)
+    far = np.array([2000.0, -1500.0, 3.0], np.float32)
+    devs = (torch.device("cpu"), dev)
+    maps = [vm.empty_map(20000, device=d) for d in devs]
+    for k in range(4):
+        pts = (rng.uniform(-30, 30, (9000, 3)) * [1, 1, 0.1] + far + 1.5 * k).astype(np.float32)
+        for i, d in enumerate(devs):
+            cloud = PointCloud(torch.from_numpy(pts).to(d), torch.ones(9000, dtype=torch.bool, device=d))
+            maps[i] = vm.insert(maps[i], cloud, 0.4)
+    cpu, card = maps
+    size = int(cpu.size)
+    assert int(card.size) == size > 0 and int(card.overflow) == int(cpu.overflow)
+    assert torch.equal(card.keys.cpu(), cpu.keys)
+    diff = (card.points.cpu() - cpu.points).abs().max()
+    assert float(diff) <= 2.5e-4, float(diff)
+    q = (rng.uniform(-35, 35, (8192, 3)) * [1, 1, 0.1] + far).astype(np.float32)
+    mask = torch.from_numpy(rng.uniform(size=8192) > 0.05)
+    a = vm.approx_nn(cpu, torch.from_numpy(q), mask, 0.4)
+    b = vm.approx_nn(card, torch.from_numpy(q).to(dev), mask.to(dev), 0.4)
+    assert torch.equal(b.found.cpu(), a.found) and bool(a.found.any())
+    f = a.found
+    d_card = ((b.points.cpu()[f].double() - torch.from_numpy(q)[f].double()) ** 2).sum(-1)
+    gap = (d_card - a.dist2[f].double()).abs().max()
+    assert float(gap) <= 1e-3, float(gap)
+    assert torch.isinf(b.dist2.cpu()[~f]).all()

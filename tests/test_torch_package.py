@@ -1,7 +1,7 @@
 """The PyTorch port as a package: no JAX import, its own copy of the
 config held to the JAX one, the numpy scan producers against the JAX ones,
-kernel modules that import without a compiler, and the
-NotImplementedError boundaries of the slice."""
+kernel modules that import without a compiler, the
+NotImplementedError boundaries of the slice, and the runner's CLI."""
 
 import dataclasses
 import json
@@ -199,8 +199,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 _OUT_OF_SLICE = {
-    "deskew": dict(deskew_rounds=1),
-    "voxel-map": dict(map_backend="voxel"),
     "sharded-map": dict(map_backend="sharded"),
     "dist-direct": dict(graph_linear_solver="dist-direct"),
 }
@@ -218,6 +216,10 @@ _NOW_IN_SLICE = {
     "pcg": dict(graph_linear_solver="pcg"),
     "schur": dict(graph_linear_solver="schur"),
     "deferred": dict(defer_optimization=True),
+    "deskew": dict(deskew_rounds=1),
+    "deskew-joint": dict(deskew_rounds=1, deskew_mode="joint"),
+    "deskew-alternate": dict(deskew_rounds=2, deskew_mode="alternate"),
+    "voxel-map": dict(map_backend="voxel"),
 }
 
 
@@ -318,5 +320,51 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_runner_physics_proxy_raises():
-    with pytest.raises(NotImplementedError, match="de-skew"):
-        trunner.main(["--kitti-proxy", "--poses", "2", "--device", "cpu"])
+    """The physics proxy runs now: without a named device it exits with the
+    card error, like every entry point, and ``--deskew`` without the
+    physics render exits as in JAX."""
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="--device cpu"):
+            trunner.main(["--kitti-proxy", "--poses", "2"])
+    with pytest.raises(SystemExit, match="--deskew"):
+        trunner.main(["--kitti-proxy", "--no-proxy-physics", "--deskew", "--poses", "2",
+                      "--device", "cpu"])
+
+
+_SMALL = ["--device", "cpu", "--max-raw-points", "8192", "--max-points", "1024",
+          "--voxel", "0.8", "--map-resolution", "0.8"]
+
+
+def test_runner_physics_default_is_coupled_free_twist(tmp_path, capsys):
+    out = tmp_path / "s.json"
+    assert trunner.main(["--kitti-proxy", "--poses", "3", *_SMALL, "--summary-out", str(out)]) == 0
+    summary = json.loads(out.read_text())
+    assert (summary["deskew_rounds"], summary["deskew_mode"], summary["deskew_free_twist"]) == (
+        1, "coupled", True)
+    assert summary["scans"] == 3 and summary["accepted"] == 2
+    assert "no-INS de-skew on by default" in capsys.readouterr().err
+    # a de-skew flag keeps the default off
+    assert trunner.main(["--kitti-proxy", "--poses", "2", "--deskew", *_SMALL,
+                         "--summary-out", str(out)]) == 0
+    assert json.loads(out.read_text())["deskew_rounds"] == 0
+
+
+def test_runner_scan_cache(tmp_path, capsys):
+    cache, out = tmp_path / "scans.npz", tmp_path / "s.json"
+    args = ["--kitti-proxy", "--poses", "3", *_SMALL, "--scan-cache", str(cache),
+            "--summary-out", str(out)]
+    assert trunner.main(args) == 0
+    first = json.loads(out.read_text())
+    assert int(np.load(cache)["tag"]) == 1 and np.load(cache)["s2"].shape[1] == 3
+    assert trunner.main(args) == 0  # from the cache
+    assert "re-rendering" not in capsys.readouterr().err
+    again = json.loads(out.read_text())
+    assert again["ate_m"] == first["ate_m"] and again["map_size"] == first["map_size"]
+    # rendered with other physics flags: re-rendered and rewritten
+    assert trunner.main([*args, "--no-proxy-physics"]) == 0
+    assert "re-rendering" in capsys.readouterr().err
+    assert int(np.load(cache)["tag"]) == 0
+    want = [p[m] for (p, m), _ in trunner.kitti_proxy_source(
+        tconfig.kitti_config(max_raw_points=8192), 3, 10.0)[0]]
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(np.load(cache)[f"s{i}"], w)
