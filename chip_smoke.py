@@ -78,7 +78,10 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    twist), through ``runner.run_slam``: ATE ≤ PHYSICS_ATE, ≥ 90% of the
    scans accepted, K1 launched in every registered scan; ms/scan median,
    p90, p99 and max, GN iterations, host syncs and K1/K2 launches per
-   scan, loop-closure edges, and the host's render seconds apart;
+   scan, loop-closure edges, and the host's render seconds apart; then
+   the same drive with the runner's prefetch depth 0 (scans uploaded
+   inline instead of three ahead on a thread) and at depth 3 again: their
+   times beside the first drive's, and records equal to it bit for bit;
 14. the INS de-skew at ingest: the same 500 scans de-skewed on the host
    (``synthetic.ins_deskew_stream``, equal to the runner's ``--deskew``
    stream) under plain ``kitti_config()``: ATE ≤ INS_ATE;
@@ -88,10 +91,33 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    scans with finite poses and K1 launched; their ATEs beside JAX's;
 16. the voxel map: phase 5's 40 scans with ``map_backend='voxel'``: ATE ≤
    VOXEL_ATE, the map size and overflow, and K2 launched on the NN cloud
-   of every refinement beside the odometry's.
+   of every refinement beside the odometry's;
+17. the KITTI tree: phase 13's 500 scans written by ``io/kitti.write_tree``
+   (4-column ``.bin`` files, ``Tr``, jittered stamps, cam0 poses) into a
+   temporary directory of the checkout, removed afterwards, and driven
+   through the runner's own entry point, ``runner.main(["--kitti", ...,
+   "--deskew-rounds", "1", "--deskew-free-twist", "--out", ...,
+   "--summary-out", ..., "--save-state", ..., "--html", ...])``: the
+   native loader built from ``native/scanio.cpp`` reads it (``loader`` =
+   native), ATE ≤ PHYSICS_ATE, ≥ 90% accepted, K1 and K2 launched in
+   every registered scan, and every product read back (the trajectory
+   ``.npz``, the summary, the checkpoint through ``checkpoint.load``, the
+   viewer); ms/scan median, p90, p99 and max, host syncs and K1/K2
+   launches per scan beside phase 13's;
+18. resume: the tree's first RESUME_AT scans with ``--end`` and
+   ``--save-state``, then ``--resume`` from that checkpoint with
+   ``--start`` to the end: the resumed run starts from the checkpoint's
+   keyframe count with a re-rendered, non-empty map, every pose finite,
+   the tail's ATE ≤ PHYSICS_ATE, printed beside phase 17's over the same
+   scans;
+19. ``--chunk``: phase 5's 40 scans through ``runner.run_slam`` in chunks
+   (``slam.run_scans``) of 8 and of 6 (a tail of 4 padded with 2 empty
+   scans): the 18-float records, trajectory included, equal to phase 5's
+   one-step drive bit for bit.
 
-Phase 12 runs after phase 16, last. Each path (phases 4, 5, 8, 9, 11 and 13-16) is driven with every launch count set to 0
-just before it and read just after. Kernel times (``ms``) are the device
+Phase 12 runs after phase 19, last. Each path (phases 4, 5, 8, 9, 11 and
+13-19) is driven with every launch count set to 0 just before it and read
+just after. Kernel times (``ms``) are the device
 time per wrapper call, calls enqueued back to back behind a spin kernel
 (``_device_ms``); plain versions are timed by CUDA events around single
 calls (``_timed``). ``bound_ms`` is the least time the card could take
@@ -159,6 +185,14 @@ CV_ATE = 0.10
 # reduced-width CPU config), printed beside the port's
 JAX_MODE_ATE = {"joint": "0.61-5.5", "alternate": "0.095"}
 VOXEL_ATE = 0.10
+SLICE_SCANS = 40
+# the KITTI tree (phases 17-18): phase 13's scans written to disk and read
+# back through the native loader; the resume splits the run here
+RESUME_AT = 250
+TREE_SEQ = "99"
+# phase 19: run_scans chunks over the slice; 40 = 5 x 8, and 6 leaves a
+# tail of 4 scans padded with 2 empty ones
+CHUNKS = (8, 6)
 
 
 def _timed(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -488,14 +522,15 @@ def phase_k2(clouds, dev):
     return err, res
 
 
-def _drive(source, cfg, poses, dev, rendered=None, backend=None):
+def _drive(source, cfg, poses, dev, rendered=None, backend=None, prefetch_depth=3):
     """Run the port's runner loop with every kernel's launch count set to 0
     just before it; the counts are read just after. K1's calls are also
     split by target capacity: ``nn1_scan`` (a scan or keyframe cloud,
     ``max_points``) and ``nn1_map`` (the map, ``max_map_points``).
     ``rendered``: ``(scans, gt)`` rendered beforehand instead of
     ``source``'s stream; ``backend``: a deferred back end, called after
-    every step and flushed at the end."""
+    every step and flushed at the end; ``prefetch_depth``: the runner's
+    scans prepared and uploaded ahead (0: inline)."""
     import torch
 
     from icpslam_tpu_torch.geometry.se3 import Pose
@@ -509,7 +544,7 @@ def _drive(source, cfg, poses, dev, rendered=None, backend=None):
         fn.launches = 0
     nn.nn1_cuda.launches_by_capacity.clear()
     post = backend.maybe_launch_or_fold if backend is not None else None
-    res = runner.run_slam(stream, cfg, init, dev, post_step=post)
+    res = runner.run_slam(stream, cfg, init, dev, post_step=post, prefetch_depth=prefetch_depth)
     if backend is not None:
         res.state = backend.flush(res.state)
     launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
@@ -543,15 +578,24 @@ def phase_sentinel(dev):
 
 
 def phase_slice(dev):
+    import numpy as np
+
     from icpslam_tpu_torch.config import kitti_config
     from icpslam_tpu_torch.io import runner
 
-    n = 40
-    s, launches, peak, _ = _drive(runner.kitti_proxy_source, kitti_config(), n, dev)
+    n = SLICE_SCANS
+    s, launches, peak, res = _drive(runner.kitti_proxy_source, kitti_config(), n, dev)
+    # the same drive with the render and the upload inline (prefetch depth
+    # 0): the source renders on the fly, so at depth 3 the render runs on
+    # the prefetch thread beside the steps
+    s0, _, _, res0 = _drive(runner.kitti_proxy_source, kitti_config(), n, dev, prefetch_depth=0)
+    print(f"[5] prefetch depth 3: ms/scan median {s['step_ms_p50']:.2f}, wall {s['wall_time_s']:.2f} s; "
+          f"depth 0 (render and upload inline): median {s0['step_ms_p50']:.2f}, wall "
+          f"{s0['wall_time_s']:.2f} s; records equal: {np.array_equal(res.records, res0.records)}")
     print(f"[5] kitti_config slice, {n} scans: ATE {s['ate_m']:.4f} m, accepted "
           f"{s['accepted']}/{n}, {s['optimizations']} optimizations, {s['keyframes']} keyframes")
     print(f"[5] ms/scan median {s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} "
-          f"(first scan {s['first_step_ms']:.1f}); host syncs/scan {s['host_syncs_per_scan']:.2f}; "
+          f"(first scan {s['compile_ms']:.1f}); host syncs/scan {s['host_syncs_per_scan']:.2f}; "
           f"K1 launches/scan {launches['nn1'] / n:.2f} (scan target "
           f"{launches['nn1_scan'] / n:.2f}, map {launches['nn1_map'] / n:.2f}), "
           f"K2 {launches['knn'] / n:.2f}; "
@@ -564,7 +608,7 @@ def phase_slice(dev):
         raise AssertionError(f"slice ATE {s['ate_m']} > 0.10 m")
     if not (launches["nn1"] > 0 and launches["knn"] > 0):
         raise AssertionError(f"slice did not run through both kernels: {launches}")
-    return {**s, "peak_bytes": peak}, launches
+    return {**s, "peak_bytes": peak, "depth0": s0}, launches, res.records
 
 
 def _near_boundary(q, t, m, r):
@@ -790,7 +834,7 @@ def phase_mission(dev):
           f"{s['keyframes']} keyframes, {s['loop_closures']} loop-closure edges, "
           f"{s['window_solves']} window and {s['full_solves']} full solves")
     print(f"[8] ms/scan median {s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} "
-          f"(first scan {s['first_step_ms']:.1f}); host syncs/scan {s['host_syncs_per_scan']:.2f}; "
+          f"(first scan {s['compile_ms']:.1f}); host syncs/scan {s['host_syncs_per_scan']:.2f}; "
           f"launches/scan K1 {per['nn1']:.2f} (scan target {per['nn1_scan']:.2f}, map "
           f"{per['nn1_map']:.2f}), K2 {per['knn']:.2f}, K3 {per['radius']:.2f}, "
           f"K4 {per['nn1_matmul']:.2f}; peak memory {peak / 2**20:.1f} MiB")
@@ -909,7 +953,7 @@ def phase_long_mission(dev, rendered, cfg=None):
     loops_after = int(rec[first_ev:, 13].sum())
     print(f"[9] long mission, {n} scans: ATE {s['ate_m']:.4f} m ({ate_before_pcg:.4f} m over the "
           f"{first_pcg} scans before the first PCG solve), accepted {s['accepted']}/{n}, "
-          f"{s['keyframes']} keyframes, {s['evictions']} evictions (first at scan {first_ev}), "
+          f"{s['keyframes']} keyframes, {s['keyframe_evictions']} evictions (first at scan {first_ev}), "
           f"{s['edges']} edges, {s['loop_closures']} loop-closure edges ({loops_after} after the "
           f"first eviction), {s['pcg_solves']} PCG solves (first at scan {first_pcg}), "
           f"{s['window_solves']} window and {s['full_solves']} full solves")
@@ -925,9 +969,9 @@ def phase_long_mission(dev, rendered, cfg=None):
         raise AssertionError(f"only {s['accepted']}/{n} scans accepted")
     if not s["ate_m"] <= LONG_ATE:
         raise AssertionError(f"long mission ATE {s['ate_m']} > {LONG_ATE} m")
-    if s["keyframes"] != cap or s["evictions"] < 20 or s["evictions"] != evict_scans.size:
+    if s["keyframes"] != cap or s["keyframe_evictions"] < 20 or s["keyframe_evictions"] != evict_scans.size:
         raise AssertionError(f"expected a full store of {cap} and >= 20 evictions, got "
-                             f"{s['keyframes']} keyframes, {s['evictions']} evictions "
+                             f"{s['keyframes']} keyframes, {s['keyframe_evictions']} evictions "
                              f"({evict_scans.size} eviction scans)")
     if s["pcg_solves"] < 3 or s["window_solves"] < 1:
         raise AssertionError(f"{s['pcg_solves']} PCG and {s['window_solves']} window solves")
@@ -1105,7 +1149,7 @@ def phase_deferred(dev, rendered, inline: dict):
     prefix = bool(valid[:count].all()) and not bool(valid[count:].any())
     print(f"[11] deferred long mission, {n} scans: ATE {s['ate_m']:.4f} m (inline, phase 9: "
           f"{inline['ate_m']:.4f}), accepted {s['accepted']}/{n}, {s['keyframes']} keyframes, "
-          f"{s['evictions']} evictions, {s['edges']} edges, {s['loop_closures']} loop-closure edges, "
+          f"{s['keyframe_evictions']} evictions, {s['edges']} edges, {s['loop_closures']} loop-closure edges, "
           f"{s['pcg_solves']} PCG solves, {s['window_solves']} window solves")
     print(f"[11] solves launched {backend.num_launched}, folded {backend.num_folded}, "
           f"{backend.folds_across_eviction} folds across an eviction; {len(ms_capture)} graph "
@@ -1125,9 +1169,9 @@ def phase_deferred(dev, rendered, inline: dict):
         raise AssertionError(f"only {s['accepted']}/{n} scans accepted")
     if not s["ate_m"] <= LONG_ATE:
         raise AssertionError(f"deferred long mission ATE {s['ate_m']} > {LONG_ATE} m")
-    if s["keyframes"] != cap or s["evictions"] < 20 or s["evictions"] != evict_scans.size:
+    if s["keyframes"] != cap or s["keyframe_evictions"] < 20 or s["keyframe_evictions"] != evict_scans.size:
         raise AssertionError(f"expected a full store of {cap} and >= 20 evictions, got "
-                             f"{s['keyframes']} keyframes, {s['evictions']} evictions")
+                             f"{s['keyframes']} keyframes, {s['keyframe_evictions']} evictions")
     if s["pcg_solves"] < 3:
         raise AssertionError(f"{s['pcg_solves']} PCG solves")
     if not prefix:
@@ -1254,7 +1298,7 @@ def phase_profile(dev):
     return out
 
 
-def _physics_drive(dev, tag: str, rendered, cfg):
+def _physics_drive(dev, tag: str, rendered, cfg, prefetch_depth=3):
     """One drive of the physics proxy (phases 13-15): the summary, the
     launch counts and the runner's result, after the checks every such
     drive must pass: K1 launched in every registered scan, at least once
@@ -1264,7 +1308,8 @@ def _physics_drive(dev, tag: str, rendered, cfg):
     from icpslam_tpu_torch.io import runner
 
     n = len(rendered[0])
-    s, launches, peak, res = _drive(runner.kitti_proxy_source, cfg, n, dev, rendered=rendered)
+    s, launches, peak, res = _drive(runner.kitti_proxy_source, cfg, n, dev, rendered=rendered,
+                                    prefetch_depth=prefetch_depth)
     reg = np.asarray(res.processed, bool)
     k1 = np.asarray(res.launches["nn1"])
     iters = res.records[:, 10]
@@ -1291,6 +1336,8 @@ def _physics_line(tag: str, s: dict, launches: dict, n: int) -> str:
 def phase_physics(dev):
     """Phases 13-15: the physics proxy with the in-loop coupled de-skew,
     with the INS de-skew at ingest, and the other in-loop modes."""
+    import numpy as np
+
     from icpslam_tpu_torch.config import kitti_config
     from icpslam_tpu_torch.io import runner, synthetic
 
@@ -1308,13 +1355,27 @@ def phase_physics(dev):
     out = {"render_s": render_s, "ins_deskew_s": ins_s}
 
     cfg = kitti_config(deskew_rounds=1, deskew_free_twist=True)
-    s, launches, _ = _physics_drive(dev, "13", (scans, gt), cfg)
-    print(_physics_line("13", s, launches, n) + " (coupled, free twist)")
+    s, launches, res13 = _physics_drive(dev, "13", (scans, gt), cfg)
+    print(_physics_line("13", s, launches, n) + " (coupled, free twist; prefetch depth 3)")
     if s["accepted"] < 0.9 * n:
         raise AssertionError(f"physics mission: only {s['accepted']}/{n} scans accepted")
     if not s["ate_m"] <= PHYSICS_ATE:
         raise AssertionError(f"physics mission ATE {s['ate_m']} > {PHYSICS_ATE} m")
     out["physics"], out["physics_launches"] = s, launches
+    # the same drive with the scans prepared and uploaded inline, then at
+    # depth 3 again: the first drive also pays the path's first use
+    out["prefetch"] = []
+    for depth in (0, 3):
+        s0, _, res0 = _physics_drive(dev, "13", (scans, gt), cfg, prefetch_depth=depth)
+        print(f"[13] prefetch depth {depth}, again: ms/scan {_fmt(s0['ms'])}; wall "
+              f"{s0['wall_time_s']:.2f} s (the first drive, depth 3: {s['wall_time_s']:.2f} s)")
+        if not np.array_equal(res0.records, res13.records):
+            diff = np.abs(res0.records - res13.records)
+            raise AssertionError(f"physics mission at depth {depth}: the records changed (max "
+                                 f"|diff| {float(np.nanmax(diff))}, first rows "
+                                 f"{np.unique(np.argwhere(diff > 0)[:, 0])[:5]})")
+        out["prefetch"].append({"depth": depth, "ms": s0["ms"], "wall_time_s": s0["wall_time_s"]})
+    del res0, res13
 
     s, launches, _ = _physics_drive(dev, "14", (ins_scans, gt), kitti_config())
     print(_physics_line("14", s, launches, n) + " (INS de-skew at ingest)")
@@ -1339,7 +1400,7 @@ def phase_physics(dev):
         if name == "coupled cv-tied" and not s["ate_m"] <= CV_ATE:
             raise AssertionError(f"coupled cv-tied ATE {s['ate_m']} > {CV_ATE} m")
         out["modes"][name] = {**s, "launches": launches}
-    return out
+    return out, (scans, gt)
 
 
 def phase_voxel(dev):
@@ -1368,6 +1429,195 @@ def phase_voxel(dev):
     return {**s, "peak_bytes": peak, "refined": refined}, launches
 
 
+def _runner_main(argv):
+    """``runner.main(argv)`` with every launch count set to 0 just before
+    it and read just after; its stdout (the summary line) is kept out of
+    this script's. Returns the launches by kernel."""
+    import contextlib
+    import io
+
+    from icpslam_tpu_torch.io import runner
+
+    for fn in runner.KERNELS.values():
+        fn.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        if runner.main(argv) != 0:
+            raise AssertionError(f"runner.main({argv}) failed")
+    return {name: fn.launches for name, fn in runner.KERNELS.items()}
+
+
+def _tree_line(tag: str, s: dict, launches: dict) -> str:
+    n = s["scans"]
+    return (f"[{tag}] ATE {s['ate_m']:.4f} m, accepted {s['accepted']}/{n}, {s['keyframes']} "
+            f"keyframes, {s['loop_closures']} loop-closure edges; ms/scan median "
+            f"{s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} p99 {s['step_ms_p99']:.2f} max "
+            f"{s['step_ms_max']:.2f}; host syncs/scan {s['host_syncs_per_scan']:.2f}; "
+            f"launches/scan K1 {launches['nn1'] / n:.2f}, K2 {launches['knn'] / n:.2f}; "
+            f"loader {s['loader']}")
+
+
+def _check_tree_run(tag: str, s: dict, launches: dict) -> None:
+    n = s["scans"]
+    if s["loader"] != "native":
+        raise AssertionError(f"{tag}: the runner read the tree with the {s['loader']} reader")
+    if s["accepted"] < 0.9 * n:
+        raise AssertionError(f"{tag}: only {s['accepted']}/{n} scans accepted")
+    if not s["ate_m"] <= PHYSICS_ATE:
+        raise AssertionError(f"{tag}: ATE {s['ate_m']} > {PHYSICS_ATE} m")
+    missed = s["registered_scans_without_launch"]
+    if missed["nn1"] or missed["knn"] or not (launches["nn1"] and launches["knn"]):
+        raise AssertionError(f"{tag}: K1/K2 not launched in every registered scan: {missed}, "
+                             f"launches {launches}")
+
+
+def _tail_ate(t, q, gt, lo: int) -> float:
+    """ATE (m, SE(3)-aligned) of trajectory rows ``lo:`` against the ground truth's."""
+    import torch
+
+    from icpslam_tpu_torch.eval import metrics
+    from icpslam_tpu_torch.geometry.se3 import Pose
+
+    est = Pose(torch.from_numpy(t[lo:]), torch.from_numpy(q[lo:]))
+    ref = Pose(torch.from_numpy(gt[0][lo:]), torch.from_numpy(gt[1][lo:]))
+    return float(metrics.ate(est, ref, align=True)[0])
+
+
+def phase_kitti_tree(dev, rendered, physics: dict):
+    """Phases 17-18: phase 13's scans as a KITTI tree on disk, driven
+    through the runner's own entry point with the native loader, with
+    every product written and read back; then the same tree split at
+    RESUME_AT into a run that checkpoints and a run that resumes."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import kitti, native_loader
+    from icpslam_tpu_torch.pipeline import slam
+    from icpslam_tpu_torch.utils import checkpoint
+
+    scans, gt = rendered
+    n = len(scans)
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="_kitti_tree_", dir=here)
+    try:
+        t0 = time.perf_counter()
+        kitti.write_tree(tmp, TREE_SEQ, (p[m] for (p, m), _ in scans), gt)
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp) for f in fs)
+        print(f"[17] wrote {n} scans as a KITTI tree in {write_s:.1f} s ({size / 2**30:.2f} GiB); "
+              f"native loader built: {native_loader.available()}")
+        prod = {k: os.path.join(tmp, f) for k, f in (
+            ("out", "traj.npz"), ("summary", "summary.json"), ("state", "state.npz"),
+            ("html", "view.html"))}
+        deskew = ["--deskew-rounds", "1", "--deskew-free-twist"]
+        common = ["--kitti", tmp, "--seq", TREE_SEQ, *deskew, "--verbosity", "0",
+                  "--device", str(dev)]
+        launches = _runner_main([*common, "--out", prod["out"], "--summary-out", prod["summary"],
+                                 "--save-state", prod["state"], "--html", prod["html"]])
+        with open(prod["summary"]) as f:
+            s = json.load(f)
+        print(_tree_line("17", s, launches))
+        p13 = physics["physics"]
+        print(f"[17] phase 13 over the same scans in memory: ATE {p13['ate_m']:.4f} m, ms/scan "
+              f"{_fmt(p13['ms'])}, host syncs/scan {p13['host_syncs_per_scan']:.2f}, launches/scan "
+              f"K1 {physics['physics_launches']['nn1'] / n:.2f}, K2 "
+              f"{physics['physics_launches']['knn'] / n:.2f}")
+        _check_tree_run("17", s, launches)
+        # every product read back
+        traj = dict(np.load(prod["out"]))
+        if sorted(traj) != ["gt_q", "gt_t", "q", "t"] or traj["t"].shape != (n, 3):
+            raise AssertionError(f"trajectory file: {sorted(traj)}, {traj['t'].shape}")
+        if not np.isfinite(traj["t"]).all():
+            raise AssertionError("non-finite poses in the trajectory file")
+        cfg = kitti_config(deskew_rounds=1, deskew_free_twist=True)
+        state = checkpoint.load(prod["state"], slam.init_state(cfg, device=dev))
+        if int(state.keyframes.count) != s["keyframes"]:
+            raise AssertionError(f"checkpoint holds {int(state.keyframes.count)} keyframes, "
+                                 f"the run {s['keyframes']}")
+        html_bytes = os.path.getsize(prod["html"])
+        with open(prod["html"]) as f:
+            if "const DATA = {" not in f.read():
+                raise AssertionError("the viewer holds no data")
+        print(f"[17] products read back: trajectory {traj['t'].shape}, summary "
+              f"{len(s)} keys, checkpoint {os.path.getsize(prod['state']) / 2**20:.1f} MiB "
+              f"({int(state.keyframes.count)} keyframes), viewer {html_bytes / 2**20:.1f} MiB")
+        tree = {**s, "launches": launches, "write_s": write_s, "bytes": size}
+
+        # phase 18: checkpoint at RESUME_AT, resume to the end
+        ck = os.path.join(tmp, "head.npz")
+        head_launches = _runner_main([*common, "--end", str(RESUME_AT), "--save-state", ck,
+                                      "--summary-out", prod["summary"]])
+        with open(prod["summary"]) as f:
+            head = json.load(f)
+        tail_out = os.path.join(tmp, "tail.npz")
+        tail_launches = _runner_main([*common, "--start", str(RESUME_AT), "--resume", ck,
+                                      "--out", tail_out, "--summary-out", prod["summary"]])
+        with open(prod["summary"]) as f:
+            tail = json.load(f)
+        tail_traj = dict(np.load(tail_out))
+        full_tail = _tail_ate(traj["t"], traj["q"], (traj["gt_t"], traj["gt_q"]), RESUME_AT)
+        print(f"[18] head {head['scans']} scans: ATE {head['ate_m']:.4f} m, {head['keyframes']} "
+              f"keyframes; resumed from {tail['resumed_keyframes']} keyframes (map re-rendered: "
+              f"{tail['resumed_map_size']} points)")
+        print(_tree_line("18", tail, tail_launches) + f"; phase 17 over the same scans: ATE "
+              f"{full_tail:.4f} m")
+        if tail["resumed_keyframes"] != head["keyframes"]:
+            raise AssertionError(f"resumed from {tail['resumed_keyframes']} keyframes, the "
+                                 f"checkpoint holds {head['keyframes']}")
+        if tail["resumed_map_size"] <= 0:
+            raise AssertionError("the resumed map is empty")
+        if not (np.isfinite(tail_traj["t"]).all() and np.isfinite(tail_traj["q"]).all()):
+            raise AssertionError("non-finite poses after the resume")
+        if tail["scans"] != n - RESUME_AT:
+            raise AssertionError(f"the resumed run drove {tail['scans']} scans")
+        _check_tree_run("18", tail, tail_launches)
+        _check_tree_run("18 head", head, head_launches)
+        resume = {"head": {**head, "launches": head_launches},
+                  "tail": {**tail, "launches": tail_launches}, "full_tail_ate_m": full_tail}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return tree, resume
+
+
+def phase_chunk(dev, slice_records):
+    """Phase 19: phase 5's scans through ``runner.run_slam`` in chunks
+    (``slam.run_scans``), equal to phase 5's one-step drive bit for bit."""
+    import numpy as np
+    import torch
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.geometry.se3 import Pose
+    from icpslam_tpu_torch.io import runner
+
+    n = SLICE_SCANS
+    rendered = _render(runner.kitti_proxy_source, kitti_config(), n)
+    gt = rendered[1]
+    init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
+    out = {}
+    for chunk in CHUNKS:
+        for fn in runner.KERNELS.values():
+            fn.launches = 0
+        res = runner.run_slam(rendered[0], kitti_config(), init, dev, chunk=chunk)
+        launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
+        pad = -n % chunk
+        equal = bool(np.array_equal(res.records, slice_records))
+        print(f"[19] chunks of {chunk} ({n // chunk} full, tail of {n % chunk} padded with {pad}): "
+              f"records {res.records.shape} equal to phase 5's bit for bit: {equal}; ms/scan "
+              f"median {np.median(res.step_ms):.2f}; launches/scan K1 {launches['nn1'] / n:.2f}, "
+              f"K2 {launches['knn'] / n:.2f}")
+        if not equal:
+            diff = np.abs(res.records - slice_records)
+            raise AssertionError(f"chunk {chunk}: records differ from phase 5's (max "
+                                 f"|diff| {float(np.nanmax(diff))} at {np.argwhere(diff > 0)[:3]})")
+        if not (launches["nn1"] and launches["knn"]):
+            raise AssertionError(f"chunk {chunk}: K1/K2 not launched: {launches}")
+        out[chunk] = {"launches": launches, "padded": pad}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write all results to this JSON file")
@@ -1387,7 +1637,7 @@ def main(argv=None) -> int:
     k1_err, k1 = phase_k1(clouds, query_world, map_pts, fill, dev)
     k2_err, k2 = phase_k2(clouds, dev)
     sentinel = phase_sentinel(dev)
-    slice_summary, slice_launches = phase_slice(dev)
+    slice_summary, slice_launches, slice_records = phase_slice(dev)
     k3_err, k3 = phase_k3(clouds, dev)
     k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
     mission, mission_launches = phase_mission(dev)
@@ -1400,8 +1650,11 @@ def main(argv=None) -> int:
     del long_res
     deferred_mission, deferred_launches = phase_deferred(dev, rendered, long_mission)
     del rendered
-    physics = phase_physics(dev)
+    physics, physics_scans = phase_physics(dev)
     voxel, voxel_launches = phase_voxel(dev)
+    tree, resume = phase_kitti_tree(dev, physics_scans, physics)
+    del physics_scans
+    chunks = phase_chunk(dev, slice_records)
     # the profile runs last: after a torch.profiler window every later
     # launch in the process cost more (phases 13-16 ran 1.1-1.9x slower
     # behind it than without it)
@@ -1443,6 +1696,7 @@ def main(argv=None) -> int:
     physics_path = f"physics mission, {physics['physics']['scans']} scans (phase 13)"
     ins_path = f"INS-deskewed physics mission, {physics['ins']['scans']} scans (phase 14)"
     voxel_path = f"voxel-map slice, {voxel['scans']} scans (phase 16)"
+    tree_path = f"KITTI tree through runner.main, {tree['scans']} scans (phase 17)"
     for entry in kernels:
         key = {"nn1": "nn1", "knn": "knn", "radius_moments": "radius",
                "nn1_matmul": "nn1_matmul"}[entry["name"]]
@@ -1456,6 +1710,8 @@ def main(argv=None) -> int:
         entry["ins_mission_path"] = ins_path
         entry["voxel_slice_launches"] = voxel_launches[key]
         entry["voxel_slice_path"] = voxel_path
+        entry["kitti_tree_launches"] = tree["launches"][key]
+        entry["kitti_tree_path"] = tree_path
     if args.out:
         with open(args.out, "w") as f:
             json.dump({
@@ -1468,6 +1724,7 @@ def main(argv=None) -> int:
                 "solvers": solvers, "deferred_mission": deferred_mission,
                 "deferred_mission_launches": deferred_launches, "profile": profile,
                 "physics": physics, "voxel": voxel, "voxel_launches": voxel_launches,
+                "kitti_tree": tree, "resume": resume, "chunks": chunks,
                 "device": torch.cuda.get_device_name(0),
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -124,7 +124,11 @@ class CapturedSolves:
                 solve(static)
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # thread-local capture: the runner's prefetch thread keeps
+            # copying scans on its own stream meanwhile, and in the
+            # default global mode any such call from another thread
+            # invalidates the capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = solve(static)
         finally:
             pg.optimize.pcg_solves, pg.optimize_window.calls = saved

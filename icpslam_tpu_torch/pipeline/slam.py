@@ -21,9 +21,12 @@ the solve out, and ``pipeline/deferred.py`` runs it beside the stream.
 The step makes no host-to-device copy of its own: scalars are filled on
 the device, small constants copied without a stream sync.
 
-Parts of the JAX step that are not ported yet raise ``NotImplementedError``
-naming their ROADMAP item instead of doing something else: the sharded
-map, the dist-* solvers and ``collect_debug``.
+With ``collect_debug`` the output carries the map-NN cloud and the
+odometry pose before refinement (``DebugInfo``), as JAX's does.
+:func:`run_scans` drives a chunk of scans, step by step, and stacks the
+outputs. Parts of the JAX step that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item instead of doing
+something else: the sharded map and the dist-* solvers.
 """
 
 from __future__ import annotations
@@ -76,6 +79,14 @@ class HostCounts(NamedTuple):
     evicted: int       # the keyframe index marginalized out by this step, or -1
 
 
+class DebugInfo(NamedTuple):
+    """Per-scan intermediate clouds (``config.collect_debug``): the
+    reference's debug topics as data."""
+    nn_points: torch.Tensor  # (N, 3) robot-frame map-NN cloud
+    nn_mask: torch.Tensor    # (N,)
+    raw_pose: Pose           # the odometry pose before refinement (odom frame)
+
+
 class SlamOutput(NamedTuple):
     odom_out: odo.OdometryOutput
     pose_map: Pose
@@ -92,6 +103,7 @@ class SlamOutput(NamedTuple):
     # n_corr, icp_iters, refined, new_keyframe, loop_closure, optimized,
     # map_size, num_keyframes, graph_cost]
     host: Optional[HostCounts] = None
+    debug: Optional[DebugInfo] = None  # only with config.collect_debug
 
 
 def check_supported(config) -> None:
@@ -111,11 +123,6 @@ def check_supported(config) -> None:
         )
     if config.graph_linear_solver not in ("auto", "direct", "pcg", "schur"):
         raise pg._not_ported(config.graph_linear_solver)
-    if config.collect_debug:
-        raise NotImplementedError(
-            "collect_debug is not ported yet — ROADMAP.md Queue 1, "
-            "'the full runner and prefetch'"
-        )
 
 
 def init_state(config, initial_pose: Optional[Pose] = None, device=None) -> SlamState:
@@ -355,11 +362,16 @@ def slam_step(
             scan_covs=oout.filtered_covs if covs_reusable else None,
         )
         new_map, slam_pose, refined, refine_hess = r.map, r.refined_pose, r.success, r.hessian
+        nn_points, nn_mask = r.nn_points, r.nn_mask
     else:
         new_map, slam_pose = state.map, raw_pose
         refined = torch.zeros((), dtype=torch.bool, device=dev)
         refine_hess = torch.zeros((6, 6), device=dev)
+        nn_points = torch.zeros((oout.filtered.capacity, 3), device=dev)
+        nn_mask = torch.zeros((oout.filtered.capacity,), dtype=torch.bool, device=dev)
     state = state._replace(map=new_map, slam_pose=slam_pose)
+    debug = (DebugInfo(nn_points=nn_points, nn_mask=nn_mask, raw_pose=raw_pose)
+             if config.collect_debug else None)
 
     # ---- 3. keyframe gate (the first scan always makes a keyframe) ---------
     if n_kf == 0:
@@ -475,5 +487,37 @@ def slam_step(
         packed=packed,
         host=HostCounts(keyframes=n_kf, edges=n_edges, kf_since_opt=kf_since,
                         lc_since_opt=lc_since, evicted=evicted),
+        debug=debug,
     )
     return state, out
+
+
+def _stack(outs):
+    """Stack a list of like NamedTuples of tensors along a new leading axis;
+    None fields stay None."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    return type(first)(*(_stack([getattr(o, f) for o in outs]) for f in first._fields))
+
+
+def run_scans(
+    state: SlamState, scans: pc.PointCloud, config, stamps=None
+) -> Tuple[SlamState, SlamOutput]:
+    """A chunk of scans through :func:`slam_step`: ``scans`` is a stacked
+    cloud ``(T, N, 3)`` / ``(T, N)``, ``stamps`` T stamps or None. The
+    outputs gain the leading axis (JAX's ``lax.scan`` contract,
+    ``pipeline/slam.py::run_scans``); ``host`` is the last step's, which
+    holds the state's counters after the chunk. A host loop: the steps
+    launch exactly the kernels of one-by-one driving, in the same order.
+    """
+    outs, hosts = [], []
+    for i in range(scans.points.shape[0]):
+        stamp = None if stamps is None else float(stamps[i])
+        state, out = slam_step(state, pc.PointCloud(scans.points[i], scans.mask[i]), config,
+                               stamp=stamp)
+        hosts.append(out.host)
+        outs.append(out._replace(host=None))
+    return state, _stack(outs)._replace(host=hosts[-1])

@@ -17,9 +17,14 @@ tolerance is 5e-5. These shapes are what ``graph/captured.py`` captures
 on the card.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu_torch.geometry import se3
 from icpslam_tpu_torch.geometry.se3 import Pose

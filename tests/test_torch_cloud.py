@@ -8,10 +8,15 @@ difference of two prefixes stays below 1e-5 m, while the port accumulates
 in float64 (its own error is ~5e-7 m).
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.cloud.voxel import voxel_downsample as jax_voxel

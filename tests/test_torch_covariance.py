@@ -9,10 +9,15 @@ whose two smallest neighbourhood eigenvalues nearly tie so that float32
 rounding of the moments turns the normal by more than 1e-4 rad.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.cloud.voxel import voxel_downsample as jax_voxel

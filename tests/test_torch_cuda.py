@@ -43,12 +43,18 @@ and at a tile's box edge just inside r); K3's pair counter must equal
   2.5e-4 m (two float32 ulps at 2 km: the voxel filter's prefix sums run
   in another order on the card); each query's pick at a d² within 1e-3
   of the CPU's (a near-tie may pick another of the candidates: the d²
-  sums round in another order).
+  sums round in another order);
+- the scan prefetch's pinned, side-stream uploads equal their arrays.
 """
+
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
 
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu_torch.cloud.pointcloud import PointCloud
 from icpslam_tpu_torch.cloud.voxel import voxel_downsample
@@ -575,3 +581,26 @@ def test_voxel_map_on_the_card_equals_cpu(dev):
     gap = (d_card - a.dist2[f].double()).abs().max()
     assert float(gap) <= 1e-3, float(gap)
     assert torch.isinf(b.dist2.cpu()[~f]).all()
+
+
+@pytest.mark.cuda
+def test_prefetch_uploads_on_a_side_stream_equal_the_arrays(dev):
+    """``io/prefetch.py`` on the card: 12 scans prepared two ahead on the
+    worker, each copied into one of 3 pinned slots (so every slot is
+    reused) and uploaded on the side stream, then read on the main stream
+    behind the upload's event: every tensor equals its array."""
+    from icpslam_tpu_torch.io import prefetch
+
+    up = prefetch.Uploader(dev, slots=3)
+    rng = np.random.RandomState(0)
+    arrays = [(rng.randn(65536, 3).astype(np.float32), rng.rand(65536) < 0.7) for _ in range(12)]
+    got = []
+    for tensors, event in prefetch.prefetch(arrays, up.upload, depth=2):
+        assert event is not None and tensors[0].device.type == "cuda"
+        pts, mask = up.ready(tensors, event)
+        total = torch.where(mask[:, None], pts, 0.0).sum(0)
+        got.append((pts.cpu(), mask.cpu(), total.cpu()))
+    for (p, m), (gp, gm, total) in zip(arrays, got):
+        np.testing.assert_array_equal(gp.numpy(), p)
+        np.testing.assert_array_equal(gm.numpy(), m)
+        np.testing.assert_allclose(total.numpy(), np.where(m[:, None], p, 0).sum(0), atol=1e-2)

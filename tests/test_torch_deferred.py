@@ -22,10 +22,15 @@ eviction, which must put each snapshot pose on the keyframe it belongs to
 neighbour.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.config import IcpConfig, tiny_config

@@ -27,11 +27,16 @@ Tolerances:
   within 1e-3 on at least 99% of the points.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import deskew as jdsk
 from icpslam_tpu.cloud import pointcloud as jpc

@@ -27,13 +27,18 @@ with the direct solver as with PCG. Then the port runs free: it evicts,
 ends with a full store and an edge store that is a valid prefix.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.config import tiny_config

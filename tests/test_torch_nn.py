@@ -21,10 +21,15 @@ Tolerances:
   ``nn_kernel.py:398-400``; the matmul forms round at a similar scale).
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.ops import nn as jnn
 from icpslam_tpu.ops.pallas.nn_kernel import (

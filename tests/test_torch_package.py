@@ -3,6 +3,12 @@ config held to the JAX one, the numpy scan producers against the JAX ones,
 kernel modules that import without a compiler, the
 NotImplementedError boundaries of the slice, and the runner's CLI."""
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import dataclasses
 import json
 import os
@@ -12,7 +18,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu import config as jax_config
 from icpslam_tpu.io import synthetic as jsyn
@@ -52,6 +57,9 @@ def test_import_leaves_jax_out():
         "files = sorted(getattr(m, '__file__', None) or '' for m in list(sys.modules.values()))\n"
         "bad = [f for f in files if f.startswith(jax_pkg)]\n"
         "assert not bad, bad\n"
+        # importing builds and loads no native library
+        "from icpslam_tpu_torch.io import native_loader\n"
+        "assert native_loader.load.cache_info().currsize == 0\n"
         "print(len(sys.modules))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -59,6 +67,24 @@ def test_import_leaves_jax_out():
         [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_scan_library_is_the_ports_own():
+    """The port builds ``native/scanio.cpp`` into its own ``_build/`` and
+    loads that library, never the JAX package's ``native/libscanio.so``."""
+    code = (
+        "from icpslam_tpu_torch.io import native_loader as n\n"
+        "assert n.available()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'native/libscanio.so' not in maps\n"
+        "assert str(n.library_path()) in maps\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert trunner.__doc__ and "--kitti" in trunner.__doc__
 
 
 def test_config_is_the_ports_own():
@@ -220,6 +246,7 @@ _NOW_IN_SLICE = {
     "deskew-joint": dict(deskew_rounds=1, deskew_mode="joint"),
     "deskew-alternate": dict(deskew_rounds=2, deskew_mode="alternate"),
     "voxel-map": dict(map_backend="voxel"),
+    "collect-debug": dict(collect_debug=True),
 }
 
 

@@ -18,10 +18,15 @@ Graphs are made with numpy from a seed and handed to both packages:
 - ``separator_mask`` and ``schur_solve`` against JAX's.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.geometry import se3 as jse3
 from icpslam_tpu.graph import pose_graph as jpg

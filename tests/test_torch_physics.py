@@ -8,6 +8,12 @@ reduced to 16-32 beams × 256-512 azimuth bins. The idealized render is
 held by ``tests/test_torch_package.py::TestProducers``.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import numpy as np
 import pytest
 

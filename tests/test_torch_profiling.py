@@ -5,11 +5,16 @@ same arguments (numbers made with numpy from a seed). ``achieved`` divides
 by the H100's published FP32 and HBM3 peaks; a trace written by ``trace``
 on the CPU is read back by ``device_summary``."""
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import json
 
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.utils import profiling as jprof
 from icpslam_tpu.utils import roofline as jroof

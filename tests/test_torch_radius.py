@@ -14,10 +14,15 @@ left out of the comparison. Tolerances: count, mean and covariance within
 1e-4 abs (the count is exactly equal for the hard cutoff).
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.cloud.voxel import voxel_downsample as jax_voxel

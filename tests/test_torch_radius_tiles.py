@@ -28,10 +28,15 @@ every target. The rule takes any tile size: besides K3's 256, tiles of
 128 and of 32, which give these small scans enough tiles to skip.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.ops.pallas import radius_stats_kernel as rsk
 from icpslam_tpu_torch.cloud.pointcloud import PointCloud

@@ -5,12 +5,17 @@ for closed-form geometry (float32, same formulas, other evaluation order),
 1e-4 m / rad for registrations and graph solves (iterative, float32).
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.config import IcpConfig

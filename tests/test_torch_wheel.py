@@ -15,13 +15,18 @@
   in the wheel edges' rel within 1e-4.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.config import IcpConfig, tiny_config

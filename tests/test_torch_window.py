@@ -24,13 +24,18 @@ identical. The solve kind of every optimization (window or full) is the
 same as JAX's rule gives, and the mission has both.
 """
 
+import torch
+
+# one intra-op thread per test worker: the suite runs several pytest
+# workers on the host's cores beside XLA's own pool
+torch.set_num_threads(1)
+
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from icpslam_tpu.cloud import pointcloud as jpc
 from icpslam_tpu.config import IcpConfig, tiny_config
