@@ -113,10 +113,42 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
 19. ``--chunk``: phase 5's 40 scans through ``runner.run_slam`` in chunks
    (``slam.run_scans``) of 8 and of 6 (a tail of 4 padded with 2 empty
    scans): the 18-float records, trajectory included, equal to phase 5's
-   one-step drive bit for bit.
+   one-step drive bit for bit;
+20. the sharded map (``parallel/``): phase 5's 40 scans with
+   ``map_backend='sharded'`` on a mesh of 1 shard, records equal to phase
+   16's voxel drive bit for bit, and of SHARDS = 8 shards (no process
+   group): the trajectory within SHARDED_DIST of phase 16's, the shard
+   sizes and overflows summing to its map's, equal keyframe,
+   optimization and loop-closure counts; ms/scan, host syncs, K1/K2
+   launches per scan and peak memory beside phase 16's;
+21. the dist-* solvers on phase 9's 512-node graph over 8 shards
+   (``parallel/dist_graph.py``), LM with 3 iterations as in phase 10:
+   poses within SOLVER_DIST and the final cost within DIST_COST_REL
+   relative of the replicated solver's, eager and captured CUDA-event
+   ms (Schur eager only: its ``ok`` is read on the host), Schur's
+   separator count and fallback; then phase 5's scans with
+   ``graph_incremental=False`` and 'dist-schur' against 'direct': the
+   trajectory within DIST_SCHUR_DIST;
+22. the batched multi-shard step (the path of JAX's
+   ``dryrun_multichip``): BATCH_PAIRS consecutive KITTI-proxy scan pairs
+   voxel-filtered to 8,192 points, plane-mode GICP, over 8 shards, with
+   the sharded map built and queried (``batched_slam_step_with_map``):
+   finite poses, the ATE ≤ BATCH_ATE, K1 launched on every pair, K2 on
+   both clouds of each; the same graph through dist-pcg and dist-schur
+   within SOLVER_DIST; ``sharded_nn`` over 8 shards on 8192 queries
+   against the 262,144-point map: each shard's block equal to K1 on that
+   block, d² bits and indices, and within MOM_ABS + MOM_REL·d² of one K1
+   call on all queries (K1 centres on its queries' centroid, which differs
+   per block);
+23. NCCL at world size 1: a process group of one rank, so that every
+   collective of the mesh goes through ``dist.all_reduce`` /
+   ``all_gather_into_tensor`` on the card: phase 20's 8-shard drive
+   (records equal bit for bit), phase 21's dist-direct solve (poses within
+   NCCL_DIST) and ``sharded_nn`` (equal) against the mesh without a group;
+   the group is destroyed afterwards.
 
-Phase 12 runs after phase 19, last. Each path (phases 4, 5, 8, 9, 11 and
-13-19) is driven with every launch count set to 0 just before it and read
+Phase 12 runs after phase 23, last. Each path (phases 4, 5, 8, 9, 11,
+13-20 and 23) is driven with every launch count set to 0 just before it and read
 just after. Kernel times (``ms``) are the device
 time per wrapper call, calls enqueued back to back behind a spin kernel
 (``_device_ms``); plain versions are timed by CUDA events around single
@@ -190,6 +222,21 @@ SLICE_SCANS = 40
 # back through the native loader; the resume splits the run here
 RESUME_AT = 250
 TREE_SEQ = "99"
+# phases 20-23: the mesh of shards (parallel/mesh.py) without a process
+# group and under NCCL at world size 1. SHARDED_DIST and DIST_SCHUR_DIST
+# are JAX's own tolerances (tests/test_sharded_slam.py: the sharded map
+# against the voxel map, dist-schur against the replicated direct
+# solver), DIST_COST_REL that of tests/test_parallel.py (a dist solve's
+# final cost against the replicated one's: the edge-sharded sums reduce in
+# another order, which CG's 50 steps amplify); NCCL_DIST: an all-reduce over one rank changes no bit, the
+# solve's poses are held to 1e-6 m all the same
+SHARDS = 8
+SHARDED_DIST = 1e-4
+DIST_SCHUR_DIST = 2e-3
+DIST_COST_REL = 1e-2
+NCCL_DIST = 1e-6
+BATCH_PAIRS = 15     # JAX's dryrun_multichip(8): B = 2·8 − 1, K = 16 nodes
+BATCH_ATE = 0.10
 # phase 19: run_scans chunks over the slice; 40 = 5 x 8, and 6 leaves a
 # tail of 4 scans padded with 2 empty ones
 CHUNKS = (8, 6)
@@ -301,7 +348,8 @@ def phase_device_and_build():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
-    print(smi[torch.cuda.current_device()] if smi else "nvidia-smi: no output")
+    card = smi[torch.cuda.current_device()] if smi else "nvidia-smi: no output"
+    print(card)
     t0 = time.perf_counter()
     cuda_build.load()
     print(f"[1] device {torch.cuda.get_device_name(0)}; kernels built in "
@@ -309,6 +357,7 @@ def phase_device_and_build():
     for line in cuda_build.load.log.read_text().splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("    ptxas:", line.strip())
+    return card
 
 
 def _main_path_clouds(dev):
@@ -522,7 +571,7 @@ def phase_k2(clouds, dev):
     return err, res
 
 
-def _drive(source, cfg, poses, dev, rendered=None, backend=None, prefetch_depth=3):
+def _drive(source, cfg, poses, dev, rendered=None, backend=None, prefetch_depth=3, mesh=None):
     """Run the port's runner loop with every kernel's launch count set to 0
     just before it; the counts are read just after. K1's calls are also
     split by target capacity: ``nn1_scan`` (a scan or keyframe cloud,
@@ -530,7 +579,8 @@ def _drive(source, cfg, poses, dev, rendered=None, backend=None, prefetch_depth=
     ``rendered``: ``(scans, gt)`` rendered beforehand instead of
     ``source``'s stream; ``backend``: a deferred back end, called after
     every step and flushed at the end; ``prefetch_depth``: the runner's
-    scans prepared and uploaded ahead (0: inline)."""
+    scans prepared and uploaded ahead (0: inline); ``mesh``: the mesh of
+    the sharded map and the dist-* solvers."""
     import torch
 
     from icpslam_tpu_torch.geometry.se3 import Pose
@@ -544,7 +594,8 @@ def _drive(source, cfg, poses, dev, rendered=None, backend=None, prefetch_depth=
         fn.launches = 0
     nn.nn1_cuda.launches_by_capacity.clear()
     post = backend.maybe_launch_or_fold if backend is not None else None
-    res = runner.run_slam(stream, cfg, init, dev, post_step=post, prefetch_depth=prefetch_depth)
+    res = runner.run_slam(stream, cfg, init, dev, post_step=post, prefetch_depth=prefetch_depth,
+                          mesh=mesh)
     if backend is not None:
         res.state = backend.flush(res.state)
     launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
@@ -1426,7 +1477,7 @@ def phase_voxel(dev):
                              f"{s['processed']} registrations and {refined} refinements")
     if launches["nn1_map"] != 0:
         raise AssertionError("voxel map: K1 ran on a map-sized target")
-    return {**s, "peak_bytes": peak, "refined": refined}, launches
+    return {**s, "peak_bytes": peak, "refined": refined}, launches, res.records
 
 
 def _runner_main(argv):
@@ -1618,6 +1669,365 @@ def phase_chunk(dev, slice_records):
     return out
 
 
+def phase_sharded(dev, voxel: dict, voxel_launches: dict, voxel_records):
+    """Phase 20: phase 5's slice with ``map_backend='sharded'`` on a mesh
+    of 1 shard (records equal to phase 16's voxel drive bit for bit) and
+    of SHARDS shards (JAX's assertions against the voxel drive), both
+    without a process group. Returns the results and the SHARDS drive's
+    records."""
+    import numpy as np
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.parallel import mesh as mesh_lib
+
+    n = SLICE_SCANS
+    out, records = {}, None
+    for d in (1, SHARDS):
+        cfg = kitti_config(map_backend="sharded", map_shards=d)
+        mesh = mesh_lib.make_mesh(d, device=dev)
+        s, launches, peak, res = _drive(runner.kitti_proxy_source, cfg, n, dev, mesh=mesh)
+        sizes = res.state.map.size.cpu().numpy()
+        dist = float(np.linalg.norm(res.records[:, :3] - voxel_records[:, :3], axis=-1).max())
+        equal = bool(np.array_equal(res.records, voxel_records))
+        out[d] = {**s, "peak_bytes": peak, "launches": launches, "shard_sizes": sizes.tolist(),
+                  "max_dist_to_voxel_m": dist, "records_equal_voxel": equal}
+        print(f"[20] sharded map, {d} shard(s), {n} scans: records equal to phase 16's bit for "
+              f"bit: {equal}; max |t - voxel t| {dist:.3g} m; ATE {s['ate_m']:.4f} m; map "
+              f"{s['map_size']} voxels (phase 16: {voxel['map_size']}), shards {sizes.tolist()}, "
+              f"overflow {s['map_overflow']} ({voxel['map_overflow']}); {s['keyframes']} "
+              f"keyframes, {s['optimizations']} optimizations, {s['loop_closures']} loop closures")
+        print(f"[20] ms/scan median {s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} (phase 16: "
+              f"{voxel['step_ms_p50']:.2f} / {voxel['step_ms_p90']:.2f}); host syncs/scan "
+              f"{s['host_syncs_per_scan']:.2f} ({voxel['host_syncs_per_scan']:.2f}); launches/scan "
+              f"K1 {launches['nn1'] / n:.2f} ({voxel_launches['nn1'] / n:.2f}), K2 "
+              f"{launches['knn'] / n:.2f} ({voxel_launches['knn'] / n:.2f}); peak memory "
+              f"{peak / 2**20:.1f} MiB ({voxel['peak_bytes'] / 2**20:.1f})")
+        if not (launches["nn1"] > 0 and launches["knn"] > 0):
+            raise AssertionError(f"sharded map, {d} shards: K1/K2 not launched: {launches}")
+        if d == 1:
+            if not equal:
+                diff = np.abs(res.records - voxel_records)
+                raise AssertionError(f"one shard: records differ from the voxel map's (max "
+                                     f"|diff| {float(np.nanmax(diff))} at "
+                                     f"{np.argwhere(diff > 0)[:3].tolist()})")
+            continue
+        records = res.records
+        if not dist <= SHARDED_DIST:
+            raise AssertionError(f"{d} shards: trajectory {dist} m from the voxel map's "
+                                 f"(> {SHARDED_DIST})")
+        for key in ("map_size", "map_overflow", "keyframes", "optimizations", "loop_closures"):
+            if s[key] != voxel[key]:
+                raise AssertionError(f"{d} shards: {key} {s[key]} against the voxel map's "
+                                     f"{voxel[key]}")
+    return out, records
+
+
+def phase_dist_solvers(dev, state, solvers: dict, slice_summary: dict):
+    """Phase 21: dist-direct, dist-pcg and dist-schur on phase 9's graph
+    over SHARDS shards against the replicated solvers of phase 10, eager
+    and captured; then phase 5's slice with ``graph_incremental=False`` and
+    'dist-schur' against 'direct'."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.graph import captured
+    from icpslam_tpu_torch.graph import pose_graph as pg
+    from icpslam_tpu_torch.graph import schur
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.parallel import dist_graph
+    from icpslam_tpu_torch.parallel import mesh as mesh_lib
+
+    store, edges = state.keyframes, state.edges
+    nodes, mask = store.pose_graph, store.valid_mask()
+    K = store.capacity
+    mesh = mesh_lib.make_mesh(SHARDS, device=dev)
+    kw = dict(iterations=3, mode="lm")   # as phase 10: LM, 3 iterations
+    chunk, sep_capacity = K // SHARDS, solvers["sep_capacity"]
+    n_sep = int(schur.separator_mask(edges.i, edges.j, edges.valid, K, chunk).sum())
+    dist_fn = functools.partial(dist_graph.optimize, mesh=mesh, sep_capacity=sep_capacity)
+    solves = captured.CapturedSolves(dev)
+    out = {}
+    for solver in ("direct", "pcg", "schur"):
+        rep, rep_stats = pg.optimize(nodes, edges, mask, linear_solver=solver,
+                                     schur_chunk_size=solvers["chunk"],
+                                     schur_sep_capacity=sep_capacity, **kw)
+        eager = functools.partial(pg.solve_bucket, nodes, edges, mask, K, solver,
+                                  optimize_fn=dist_fn, **kw)
+        got, stats = eager()
+        dist = float(torch.linalg.norm(got.t - rep.t, dim=-1).max())
+        cost_rel = abs(float(stats.final_cost) - float(rep_stats.final_cost)) / max(
+            abs(float(rep_stats.final_cost)), 1e-30)
+        r = out[f"dist-{solver}"] = {
+            "eager_ms": _timed(eager, iters=5, warmup=1), "replicated_ms": solvers[solver]["ms"],
+            "initial_cost": float(stats.initial_cost), "final_cost": float(stats.final_cost),
+            "replicated_final_cost": float(rep_stats.final_cost), "cost_rel": cost_rel,
+            "max_dist_to_replicated_m": dist, "replay_ms": None}
+        extra = ""
+        if solver == "schur":
+            r.update(n_sep=n_sep, chunk=chunk, fell_back=n_sep > sep_capacity)
+            extra = (f"; {n_sep} separators at chunk {chunk} for {sep_capacity} slots, "
+                     f"{'fell back to direct' if r['fell_back'] else 'no fallback'}; not "
+                     "captured (ok is read on the host)")
+        else:
+            def replay(s=solver):
+                return solves.full(nodes, edges, mask, K, s, mesh=mesh, **kw)
+
+            g = replay()
+            torch.cuda.synchronize()
+            r["replay_ms"] = _timed(replay, iters=5, warmup=1)
+            r["replay_dist_to_eager_m"] = float(torch.linalg.norm(g[0].t - got.t, dim=-1).max())
+            extra = (f"; captured replay {r['replay_ms']:.3f} ms, "
+                     f"{r['replay_dist_to_eager_m']:.3g} m from eager")
+            if not r["replay_dist_to_eager_m"] <= CAPTURED_DIST:
+                raise AssertionError(f"captured dist-{solver}: {r['replay_dist_to_eager_m']} m "
+                                     f"from eager (> {CAPTURED_DIST})")
+        print(f"[21] dist-{solver} over {SHARDS} shards on {int(store.count)} nodes: eager "
+              f"{r['eager_ms']:.2f} ms (replicated {solver}, phase 10: {r['replicated_ms']:.2f}); "
+              f"cost {r['initial_cost']:.6g} -> {r['final_cost']:.6g} (replicated "
+              f"{r['replicated_final_cost']:.6g}, {cost_rel:.3g} rel); {dist:.3g} m from the "
+              f"replicated solve{extra}")
+        if not (torch.isfinite(got.t).all() and torch.isfinite(got.q).all()):
+            raise AssertionError(f"dist-{solver}: non-finite poses")
+        if not (dist <= SOLVER_DIST and cost_rel <= DIST_COST_REL):
+            raise AssertionError(f"dist-{solver}: {dist} m and {cost_rel} rel cost from the "
+                                 f"replicated solve (> {SOLVER_DIST} / {DIST_COST_REL})")
+    out["graphs"] = len(solves.graphs)
+
+    n = SLICE_SCANS
+    runs = {}
+    for solver in ("direct", "dist-schur"):
+        cfg = kitti_config(graph_incremental=False, graph_linear_solver=solver)
+        calls = dist_graph.optimize.calls
+        s, launches, _, res = _drive(runner.kitti_proxy_source, cfg, n, dev, mesh=mesh)
+        runs[solver] = (s, res.records, dist_graph.optimize.calls - calls)
+    (s_r, rec_r, _), (s_d, rec_d, dist_calls) = runs["direct"], runs["dist-schur"]
+    dist = float(np.linalg.norm(rec_d[:, :3] - rec_r[:, :3], axis=-1).max())
+    print(f"[21] slice with graph_incremental=False, dist-schur against direct: {dist:.3g} m "
+          f"apart; {s_d['optimizations']} optimizations ({s_r['optimizations']}), "
+          f"{dist_calls} distributed solves; ms/scan median {s_d['step_ms_p50']:.2f} "
+          f"({s_r['step_ms_p50']:.2f}; phase 5: {slice_summary['step_ms_p50']:.2f})")
+    if not (dist <= DIST_SCHUR_DIST and s_d["optimizations"] == s_r["optimizations"] >= 1
+            and dist_calls == s_d["optimizations"]):
+        raise AssertionError(f"dist-schur slice: {dist} m from direct (> {DIST_SCHUR_DIST}), "
+                             f"{s_d['optimizations']} / {s_r['optimizations']} optimizations, "
+                             f"{dist_calls} distributed solves")
+    out["slice"] = {"max_dist_m": dist, "optimizations": s_d["optimizations"],
+                    "ms_p50": s_d["step_ms_p50"], "direct_ms_p50": s_r["step_ms_p50"]}
+    return out
+
+
+def phase_batched(dev, query_world, map_pts, fill):
+    """Phase 22: the batched multi-shard step (the path of JAX's
+    ``dryrun_multichip``) at the port's widths, and ``sharded_nn`` against
+    one K1 call on a map-sized target."""
+    import numpy as np
+    import torch
+
+    from icpslam_tpu_torch.cloud import pointcloud as pc
+    from icpslam_tpu_torch.cloud.voxel import voxel_downsample
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.eval import metrics
+    from icpslam_tpu_torch.geometry import se3
+    from icpslam_tpu_torch.geometry.se3 import Pose
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.ops import nn
+    from icpslam_tpu_torch.parallel import dist_graph, dist_step, sharded_nn
+    from icpslam_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = kitti_config()
+    B = BATCH_PAIRS
+    stream, gt = runner.kitti_proxy_source(cfg, B + 1, 10.0)
+    clouds = []
+    for (pts, mask), _ in stream:
+        raw = pc.PointCloud(torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
+        clouds.append(voxel_downsample(raw, cfg.voxel_leaf_size, cfg.max_points)[0])
+    src = pc.PointCloud(torch.stack([c.points for c in clouds[1:]]),
+                        torch.stack([c.mask for c in clouds[1:]]))
+    tgt = pc.PointCloud(torch.stack([c.points for c in clouds[:-1]]),
+                        torch.stack([c.mask for c in clouds[:-1]]))
+    mesh = mesh_lib.make_mesh(SHARDS, device=dev)
+    icfg = cfg.icp_odometry
+
+    # K1 launches per registered pair, read around each registration
+    register, per_pair = dist_step._register, []
+
+    def counted(s, t, c):
+        k0 = nn.nn1_cuda.launches
+        res = register(s, t, c)
+        per_pair.append(nn.nn1_cuda.launches - k0)
+        return res
+
+    for fn in runner.KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist_step._register = counted
+    try:
+        result, smap, nnres = dist_step.batched_slam_step_with_map(
+            src, tgt, icfg, mesh, map_resolution=cfg.map_resolution,
+            map_capacity_per_shard=cfg.max_map_points)
+        torch.cuda.synchronize()
+    finally:
+        dist_step._register = register
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
+    gt_pose = Pose(torch.from_numpy(gt[0][: B + 1]), torch.from_numpy(gt[1][: B + 1]))
+    ate, _ = metrics.ate(Pose(result.nodes.t.cpu(), result.nodes.q.cpu()), gt_pose, align=True)
+    ate = float(ate)
+    sizes = smap.size.cpu().numpy()
+
+    # the same graph through dist-pcg and dist-schur (K = B + 1 = 16 nodes)
+    nodes0 = dist_step.chain_poses(result.rel_poses, se3.identity(device=dev))
+    edges = dist_step.sequential_edges(result.rel_poses)
+    node_mask = torch.ones((B + 1,), dtype=torch.bool, device=dev)
+    other = {}
+    for solver in ("pcg", "schur"):
+        opt, st = dist_graph.optimize(nodes0, edges, node_mask, mesh, iterations=5, mode="gn",
+                                      linear_solver=solver)
+        other[solver] = float(torch.linalg.norm(opt.t - result.nodes.t, dim=-1).max())
+    print(f"[22] batched step, {B} pairs over {SHARDS} shards ({int(src.mask[0].sum())} of "
+          f"{cfg.max_points} points in the first scan): {step_ms:.1f} ms with the map; ATE "
+          f"{ate:.4f} m; cost {float(result.final_cost):.6g}; K1 launches per pair "
+          f"{per_pair} ({launches['nn1']} in all), K2 {launches['knn']}; map {int(sizes.sum())} "
+          f"voxels in shards {sizes.tolist()}, NN found {int(nnres.found.sum())} of "
+          f"{int(src.mask[0].sum())}; dist-pcg and dist-schur {other['pcg']:.3g} / "
+          f"{other['schur']:.3g} m from dist-direct")
+    finite = all(bool(torch.isfinite(x).all()) for x in (*result.nodes, *result.rel_poses))
+    if not (finite and np.isfinite(float(result.final_cost))):
+        raise AssertionError("batched step: non-finite poses or cost")
+    if len(per_pair) != B or min(per_pair) < 1:
+        raise AssertionError(f"batched step: K1 not launched on every pair: {per_pair}")
+    if launches["knn"] < 2 * B:
+        raise AssertionError(f"batched step: K2 launched {launches['knn']} times for {B} pairs")
+    if not ate <= BATCH_ATE:
+        raise AssertionError(f"batched step ATE {ate} > {BATCH_ATE} m")
+    if not (sizes.sum() > 0 and bool(nnres.found.any())):
+        raise AssertionError("batched step: the sharded map stayed empty or found nothing")
+    if not max(other.values()) <= SOLVER_DIST:
+        raise AssertionError(f"batched step: dist-pcg / dist-schur {other} m from dist-direct")
+
+    # sharded_nn on the map-sized target against one K1 call on all the
+    # queries. K1 centres the coordinates on its queries' centroid, and each
+    # shard's block has its own, so d² may differ in the last bits: each
+    # block equals K1 on that block bit for bit, and against the one call
+    # the d² agree within MOM_ABS + MOM_REL·d², and where an index differs
+    # the float64 distances of the two targets agree within that bound too
+    # (a tie to float32 rounding)
+    q = query_world.points.contiguous()
+    m = torch.arange(map_pts.shape[0], device=dev) < fill
+    k0 = nn.nn1_cuda.launches
+    got = sharded_nn.nearest_neighbors(q, map_pts, m, mesh)
+    shard_launches = nn.nn1_cuda.launches - k0
+    want = nn.nearest_neighbors(q, map_pts, m)
+    per = q.shape[0] // SHARDS
+    for b in range(SHARDS):
+        blk = nn.nearest_neighbors(q[b * per:(b + 1) * per], map_pts, m)
+        _equal(f"sharded_nn block {b}", got.idx[b * per:(b + 1) * per],
+               got.dist2[b * per:(b + 1) * per], blk.idx, blk.dist2)
+    torch.cuda.synchronize()
+    err = _close("sharded_nn d2 against one K1 call", got.dist2, want.dist2)
+    bits = int((got.dist2.view(torch.int32) != want.dist2.view(torch.int32)).sum())
+    moved = got.idx != want.idx
+
+    def d64(idx):
+        return ((q.double() - map_pts[idx].double()) ** 2).sum(-1)
+
+    tie = _close("sharded_nn: the targets where an index differs", d64(got.idx[moved])
+                 if moved.any() else torch.zeros(0, dtype=torch.float64, device=dev),
+                 d64(want.idx[moved]) if moved.any() else torch.zeros(0, dtype=torch.float64,
+                                                                     device=dev))
+    print(f"[22] sharded_nn over {SHARDS} shards, {q.shape[0]} x {map_pts.shape[0]} at {fill} "
+          f"fill: {shard_launches} K1 launches, every block equal to K1 on that block bit for "
+          f"bit; against one K1 call on all queries: {bits} d2 differ in their bits (max "
+          f"|diff| {err:.3g}), {int(moved.sum())} indices differ (float64 gap {tie:.3g})")
+    if shard_launches != SHARDS:
+        raise AssertionError(f"sharded_nn launched K1 {shard_launches} times, not {SHARDS}")
+    return {"pairs": B, "step_ms": step_ms, "ate_m": ate, "launches": launches,
+            "k1_per_pair": per_pair, "map_size": int(sizes.sum()), "shard_sizes": sizes.tolist(),
+            "nn_found": int(nnres.found.sum()), "dist_to_direct_m": other,
+            "sharded_nn_max_abs_err": err, "sharded_nn_d2_bits_differ": bits,
+            "sharded_nn_idx_differ": int(moved.sum())}
+
+
+def phase_nccl(dev, state, sharded_records):
+    """Phase 23: a NCCL process group of one rank, so that the mesh's
+    collectives run through ``dist.all_reduce`` / ``all_gather_into_tensor``
+    on the card: phase 20's SHARDS-shard drive and phase 21's dist-direct
+    solve on that mesh, against the mesh without a group."""
+    import datetime
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.parallel import dist_graph, sharded_nn
+    from icpslam_tpu_torch.parallel import mesh as mesh_lib
+
+    store_dir = tempfile.mkdtemp(prefix="_nccl_store_", dir=os.path.dirname(os.path.abspath(__file__)))
+    calls = {"all_reduce": 0, "all_gather_into_tensor": 0}
+    originals = {name: getattr(dist, name) for name in calls}
+
+    def counting(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return originals[name](*a, **k)
+        return call
+
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                                world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+        for name in calls:
+            setattr(dist, name, counting(name))
+        try:
+            mesh = mesh_lib.make_mesh(SHARDS, device=dev)
+            plain = mesh_lib.Mesh(size=SHARDS, group=None, world=1, rank=0, device=mesh.device)
+            if mesh.group is None or mesh.world != 1:
+                raise AssertionError(f"expected a group of one rank: {mesh}")
+            cfg = kitti_config(map_backend="sharded", map_shards=SHARDS)
+            s, launches, _, res = _drive(runner.kitti_proxy_source, cfg, SLICE_SCANS, dev,
+                                         mesh=mesh)
+            drive_calls = dict(calls)
+            equal = bool(np.array_equal(res.records, sharded_records))
+            store, edges = state.keyframes, state.edges
+            args = (store.pose_graph, edges, store.valid_mask())
+            kw = dict(iterations=3, mode="lm", linear_solver="direct")
+            got, _ = dist_graph.optimize(*args, mesh, **kw)
+            want, _ = dist_graph.optimize(*args, plain, **kw)
+            solve_dist = float(torch.linalg.norm(got.t - want.t, dim=-1).max())
+            q = res.state.keyframes.points[0]
+            a = sharded_nn.nearest_neighbors(q, store.points[1], store.point_mask[1], mesh)
+            b = sharded_nn.nearest_neighbors(q, store.points[1], store.point_mask[1], plain)
+            torch.cuda.synchronize()
+            _equal("sharded_nn under NCCL", a.idx, a.dist2, b.idx, b.dist2)
+        finally:
+            for name, fn in originals.items():
+                setattr(dist, name, fn)
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    print(f"[23] NCCL, world size 1, {SHARDS} shards: the drive's records equal phase 20's bit "
+          f"for bit: {equal} ({drive_calls['all_reduce']} all_reduce calls, ms/scan median "
+          f"{s['step_ms_p50']:.2f}); dist-direct {solve_dist:.3g} m from the mesh without a "
+          f"group; sharded_nn equal; collectives {calls}")
+    if not equal:
+        raise AssertionError("NCCL mesh: records differ from the mesh without a group")
+    if not solve_dist <= NCCL_DIST:
+        raise AssertionError(f"NCCL mesh: dist-direct {solve_dist} m from the plain mesh's")
+    if not (drive_calls["all_reduce"] > 0 and calls["all_gather_into_tensor"] > 0):
+        raise AssertionError(f"NCCL mesh: the collectives did not go through the group: {calls}")
+    return {"records_equal": equal, "solve_dist_m": solve_dist, "collective_calls": calls,
+            "ms_p50": s["step_ms_p50"], "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write all results to this JSON file")
@@ -1631,7 +2041,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
-    phase_device_and_build()
+    card = phase_device_and_build()
     clouds, query_world, map_pts, fill = _main_path_clouds(dev)
     print(f"    main-path clouds: {[int(c.mask.sum()) for c in clouds]} live of 8192; map fill {fill}")
     k1_err, k1 = phase_k1(clouds, query_world, map_pts, fill, dev)
@@ -1647,14 +2057,20 @@ def main(argv=None) -> int:
     rendered = _render(runner.kitti_proxy_source, kitti_config(), LONG_SCANS)
     long_mission, long_launches, long_res = phase_long_mission(dev, rendered)
     solvers = phase_solvers(long_res.state)
+    long_state = long_res.state
     del long_res
     deferred_mission, deferred_launches = phase_deferred(dev, rendered, long_mission)
     del rendered
     physics, physics_scans = phase_physics(dev)
-    voxel, voxel_launches = phase_voxel(dev)
+    voxel, voxel_launches, voxel_records = phase_voxel(dev)
     tree, resume = phase_kitti_tree(dev, physics_scans, physics)
     del physics_scans
     chunks = phase_chunk(dev, slice_records)
+    sharded, sharded_records = phase_sharded(dev, voxel, voxel_launches, voxel_records)
+    dist_solvers = phase_dist_solvers(dev, long_state, solvers, slice_summary)
+    batched = phase_batched(dev, query_world, map_pts, fill)
+    nccl = phase_nccl(dev, long_state, sharded_records)
+    del long_state
     # the profile runs last: after a torch.profiler window every later
     # launch in the process cost more (phases 13-16 ran 1.1-1.9x slower
     # behind it than without it)
@@ -1697,6 +2113,8 @@ def main(argv=None) -> int:
     ins_path = f"INS-deskewed physics mission, {physics['ins']['scans']} scans (phase 14)"
     voxel_path = f"voxel-map slice, {voxel['scans']} scans (phase 16)"
     tree_path = f"KITTI tree through runner.main, {tree['scans']} scans (phase 17)"
+    sharded_path = f"sharded-map slice over {SHARDS} shards, {SLICE_SCANS} scans (phase 20)"
+    batched_path = f"batched multi-shard step, {batched['pairs']} pairs (phase 22)"
     for entry in kernels:
         key = {"nn1": "nn1", "knn": "knn", "radius_moments": "radius",
                "nn1_matmul": "nn1_matmul"}[entry["name"]]
@@ -1712,6 +2130,10 @@ def main(argv=None) -> int:
         entry["voxel_slice_path"] = voxel_path
         entry["kitti_tree_launches"] = tree["launches"][key]
         entry["kitti_tree_path"] = tree_path
+        entry["sharded_slice_launches"] = sharded[SHARDS]["launches"][key]
+        entry["sharded_slice_path"] = sharded_path
+        entry["batched_step_launches"] = batched["launches"][key]
+        entry["batched_step_path"] = batched_path
     if args.out:
         with open(args.out, "w") as f:
             json.dump({
@@ -1725,7 +2147,9 @@ def main(argv=None) -> int:
                 "deferred_mission_launches": deferred_launches, "profile": profile,
                 "physics": physics, "voxel": voxel, "voxel_launches": voxel_launches,
                 "kitti_tree": tree, "resume": resume, "chunks": chunks,
-                "device": torch.cuda.get_device_name(0),
+                "sharded": sharded, "dist_solvers": dist_solvers, "batched": batched,
+                "nccl": nccl,
+                "device": torch.cuda.get_device_name(0), "card": card,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

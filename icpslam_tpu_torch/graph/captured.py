@@ -17,18 +17,25 @@ launches the whole graph with one call, on the current stream.
 Schur is not captured: its ``ok`` is read on the host at every LM step
 (``pose_graph._schur_step``), a device-to-host copy that a capture does
 not allow, so it stays eager and :meth:`CapturedSolves.full` refuses it.
-A capture or replay that fails raises; nothing falls back to the eager
-solve.
+The edge-sharded solves of ``parallel/dist_graph.py`` on a mesh without a
+process group reduce over the local shard axis only, so they are
+captured per bucket like the replicated ones; on a mesh with a group
+their collectives are not captured (gloo cannot be, and NCCL capture is
+not proven here), so they run eager and :meth:`CapturedSolves.full`
+refuses them. A capture or replay that fails raises; nothing falls back
+to the eager solve.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph import pose_graph as pg
+from icpslam_tpu_torch.parallel import dist_graph
 
 _EDGE_FIELDS = pg.EdgeSet._fields
 
@@ -114,7 +121,7 @@ class CapturedSolves:
         static = {k: v.clone() for k, v in inputs.items()}
         # the warm-up and the capture run the solve's Python body twice:
         # the call counters count replays, not these
-        saved = (pg.optimize.pcg_solves, pg.optimize_window.calls)
+        saved = (pg.optimize.pcg_solves, pg.optimize_window.calls, dist_graph.optimize.calls)
         try:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -131,25 +138,36 @@ class CapturedSolves:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = solve(static)
         finally:
-            pg.optimize.pcg_solves, pg.optimize_window.calls = saved
+            pg.optimize.pcg_solves, pg.optimize_window.calls, dist_graph.optimize.calls = saved
         return CapturedSolve(graph, static, outputs, counter)
 
     def prepare_full(self, nodes: Pose, edges: pg.EdgeSet, node_mask: torch.Tensor,
-                     bucket: int, linear_solver: str, **kw) -> CapturedSolve:
+                     bucket: int, linear_solver: str, mesh=None, **kw) -> CapturedSolve:
         """The captured ``solve_bucket`` of this bucket and solver with its
-        inputs loaded; ``.run()`` replays it."""
+        inputs loaded; ``.run()`` replays it. With ``mesh`` the bucket is
+        solved by ``dist_graph.optimize`` on it (a mesh without a process
+        group)."""
         if linear_solver not in ("direct", "pcg"):
             raise ValueError(f"linear_solver={linear_solver!r} is not captured "
                              "(Schur reads its ok flag on the host; 'auto' is resolved "
                              "by the caller)")
+        if mesh is not None and mesh.group is not None:
+            raise ValueError("a dist-* solve on a mesh with a process group is not captured "
+                             "(its collectives run eager)")
+        optimize_fn = None if mesh is None else functools.partial(dist_graph.optimize, mesh=mesh)
 
         def solve(x):
             nds, es, mask, _ = _unpack(x)
-            return pg.solve_bucket(nds, es, mask, bucket, linear_solver, **kw)
+            return pg.solve_bucket(nds, es, mask, bucket, linear_solver,
+                                   optimize_fn=optimize_fn, **kw)
 
         inputs = _inputs(nodes, edges, node_mask)
-        counter = (pg.optimize, "pcg_solves") if linear_solver == "pcg" else None
-        key = ("full", linear_solver, bucket, tuple(sorted(kw.items())))
+        if mesh is not None:
+            counter = (dist_graph.optimize, "replays")
+        else:
+            counter = (pg.optimize, "pcg_solves") if linear_solver == "pcg" else None
+        key = ("full", linear_solver, bucket, tuple(sorted(kw.items())),
+               None if mesh is None else mesh.size)
         g = self._get(key, inputs, solve, counter)
         g.load(inputs)
         return g

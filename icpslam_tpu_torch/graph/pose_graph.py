@@ -120,7 +120,10 @@ def _edge_jacobians(nodes: Pose, edges: EdgeSet):
 
 class _EndpointSum:
     """Sums of per-edge rows onto the edges' endpoints: ``s(a, b)[k] =
-    Σ_{e: i_e = k} a[e] + Σ_{e: j_e = k} b[e]`` over ``n`` nodes.
+    Σ_{e: i_e = k} a[e] + Σ_{e: j_e = k} b[e]`` over ``n`` nodes. With
+    ``ei``, ``ej`` of shape (L, E), L edge sets are summed apart, each onto
+    its own ``n`` nodes (the local shards of ``parallel/dist_graph.py``):
+    ``a``, ``b`` are (L, E, ...) and the sums (L, n, ...).
 
     On the card the sums are products with the (n, E) incidence matrices,
     in a fixed order and without atomics, so a solve gives the same bits
@@ -133,22 +136,32 @@ class _EndpointSum:
         self.ei, self.ej, self.n = ei, ej, n
         if ei.is_cuda:
             nodes = torch.arange(n, device=ei.device)[:, None]
-            self.Mi = (ei[None, :] == nodes).to(dtype)
-            self.Mj = (ej[None, :] == nodes).to(dtype)
+            self.Mi = (ei[..., None, :] == nodes).to(dtype)
+            self.Mj = (ej[..., None, :] == nodes).to(dtype)
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        shape = (self.n,) + a.shape[1:]
+        lead = tuple(self.ei.shape[:-1])
+        E = self.ei.shape[-1]
+        rest = tuple(a.shape[len(lead) + 1:])
+        shape = lead + (self.n,) + rest
         if self.ei.is_cuda:
-            E = a.shape[0]
-            return (self.Mi @ a.reshape(E, -1) + self.Mj @ b.reshape(E, -1)).reshape(shape)
-        return a.new_zeros(shape).index_add_(0, self.ei, a).index_add_(0, self.ej, b)
+            return (self.Mi @ a.reshape(lead + (E, -1))
+                    + self.Mj @ b.reshape(lead + (E, -1))).reshape(shape)
+        if not lead:
+            return a.new_zeros(shape).index_add_(0, self.ei, a).index_add_(0, self.ej, b)
+        off = torch.arange(lead[0], device=a.device)[:, None] * self.n
+        flat = a.new_zeros((lead[0] * self.n,) + rest)
+        flat.index_add_(0, (self.ei + off).reshape(-1), a.reshape((-1,) + rest))
+        flat.index_add_(0, (self.ej + off).reshape(-1), b.reshape((-1,) + rest))
+        return flat.reshape(shape)
 
 
-def normal_equations(
-    nodes: Pose, edges: EdgeSet, node_mask: torch.Tensor, anchor_weight: float = 1e6
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(K, 6, K, 6) H and (K, 6) b, with dead nodes on an identity diagonal
-    and node 0 anchored (gauge fix)."""
+def edge_contributions(nodes: Pose, edges: EdgeSet, shards: int | None = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The edges' part of the normal equations: (K, 6, K, 6) H and (K, 6) b
+    (invalid edges add zero). With ``shards``, the E edges are that many
+    contiguous blocks, summed apart: (shards, K, 6, K, 6) and (shards, K,
+    6), the partial sums that ``parallel/dist_graph.py`` reduces."""
     K = nodes.t.shape[0]
     dt, dev = nodes.t.dtype, nodes.t.device
     r, Ji, Jj = _edge_jacobians(nodes, edges)
@@ -157,18 +170,42 @@ def normal_equations(
     JjT_O = Jj.mT @ info
     Hii, Hij, Hjj = JiT_O @ Ji, JiT_O @ Jj, JjT_O @ Jj
     ei, ej = edges.i.long(), edges.j.long()
-    H = torch.zeros((K, K, 6, 6), dtype=dt, device=dev)
-    H.index_put_((ei, ei), Hii, accumulate=True)
-    H.index_put_((ei, ej), Hij, accumulate=True)
-    H.index_put_((ej, ei), Hij.mT, accumulate=True)
-    H.index_put_((ej, ej), Hjj, accumulate=True)
-    b = _EndpointSum(ei, ej, K, dt)((JiT_O @ r[..., None])[..., 0], (JjT_O @ r[..., None])[..., 0])
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    diag = torch.arange(K, device=dev)
-    H[diag, diag] += (~node_mask).to(dt)[:, None, None] * eye6
-    H[0, 0] += anchor_weight * eye6
-    b = b * node_mask[:, None]
-    return H.permute(0, 2, 1, 3), b
+    lead, sid, at_i, at_j = (), (), ei, ej
+    if shards is not None:
+        E = ei.shape[0]
+        lead, sid = (shards,), (torch.arange(E, device=dev) // (E // shards),)
+        at_i, at_j = ei.reshape(shards, -1), ej.reshape(shards, -1)
+    H = torch.zeros(lead + (K, K, 6, 6), dtype=dt, device=dev)
+    H.index_put_(sid + (ei, ei), Hii, accumulate=True)
+    H.index_put_(sid + (ei, ej), Hij, accumulate=True)
+    H.index_put_(sid + (ej, ei), Hij.mT, accumulate=True)
+    H.index_put_(sid + (ej, ej), Hjj, accumulate=True)
+    bi = (JiT_O @ r[..., None])[..., 0].reshape(lead + (-1, 6))
+    bj = (JjT_O @ r[..., None])[..., 0].reshape(lead + (-1, 6))
+    b = _EndpointSum(at_i, at_j, K, dt)(bi, bj)
+    return H.transpose(-3, -2), b
+
+
+def regularize_normal_equations(
+    H: torch.Tensor, b: torch.Tensor, node_mask: torch.Tensor, anchor_weight: float = 1e6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dead nodes on an identity diagonal with a zero gradient, and node 0
+    anchored (gauge fix); ``H`` (K, 6, K, 6) is updated in place."""
+    K = b.shape[0]
+    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+    diag = torch.arange(K, device=H.device)
+    H[diag, :, diag, :] += (~node_mask).to(H.dtype)[:, None, None] * eye6
+    H[0, :, 0, :] += anchor_weight * eye6
+    return H, b * node_mask[:, None]
+
+
+def normal_equations(
+    nodes: Pose, edges: EdgeSet, node_mask: torch.Tensor, anchor_weight: float = 1e6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, 6, K, 6) H and (K, 6) b, with dead nodes on an identity diagonal
+    and node 0 anchored (gauge fix)."""
+    H, b = edge_contributions(nodes, edges)
+    return regularize_normal_equations(H, b, node_mask, anchor_weight)
 
 
 def _damped(H: torch.Tensor, damping) -> torch.Tensor:
@@ -345,13 +382,6 @@ def resolve_linear_solver(linear_solver: str, n_nodes: int) -> str:
     return linear_solver
 
 
-def _not_ported(solver: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"linear_solver='{solver}' is not ported yet — ROADMAP.md Queue 1, "
-        "'parallel/ and tools/'"
-    )
-
-
 def optimize(
     nodes: Pose,
     edges: EdgeSet,
@@ -385,7 +415,8 @@ def optimize(
             H, b = normal_equations(nds, edges, node_mask)
             return _solve_and_update(nds, H, b, lam, node_mask)
     else:
-        raise _not_ported(solver)
+        raise ValueError(f"linear_solver={linear_solver!r}: expected 'direct', 'pcg', 'schur' "
+                         "or 'auto' (the dist-* solvers are parallel/dist_graph.optimize)")
 
     return _gn_or_lm(step, nodes, edges, iterations, mode, init_damping)
 
@@ -441,16 +472,20 @@ def optimize_bucketed(
     edge_count: int,
     min_bucket: int = 64,
     linear_solver: str = "direct",
+    optimize_fn=None,
     **kw,
 ) -> Tuple[Pose, SolveStats]:
     """Solve the live graph (``node_count`` nodes, ``edge_count`` edges —
     host ints; the stores are prefix-filled) on JAX's bucket
     (:func:`bucket_size`), with ``linear_solver`` resolved there: 'auto'
-    is direct up to a 256-node bucket and PCG above."""
+    is direct up to a 256-node bucket and PCG above. ``optimize_fn``
+    (default :func:`optimize`) solves the bucket; the streaming step
+    passes ``parallel/dist_graph.optimize`` with the mesh bound."""
     K, E = nodes.t.shape[0], edges.i.shape[0]
     bucket = bucket_size(node_count, edge_count, K, E, min_bucket)
     return solve_bucket(
-        nodes, edges, node_mask, bucket, resolve_linear_solver(linear_solver, bucket), **kw
+        nodes, edges, node_mask, bucket, resolve_linear_solver(linear_solver, bucket),
+        optimize_fn=optimize_fn, **kw,
     )
 
 
@@ -460,9 +495,10 @@ def solve_bucket(
     node_mask: torch.Tensor,
     bucket: int,
     linear_solver: str,
+    optimize_fn=None,
     **kw,
 ) -> Tuple[Pose, SolveStats]:
-    """:func:`optimize` on the prefix of ``bucket`` nodes and ``E·bucket/K``
+    """:func:`optimize` (or ``optimize_fn``) on the prefix of ``bucket`` nodes and ``E·bucket/K``
     edges, as JAX's ``optimize_bucketed`` branch solves it; the shapes
     depend on the bucket alone.
 
@@ -483,7 +519,7 @@ def solve_bucket(
         rel_t=edges.rel_t[:eb], rel_q=edges.rel_q[:eb], info=edges.info[:eb], valid=valid,
         count=torch.clamp(edges.count, max=eb), overflow=edges.overflow,
     )
-    opt, stats = optimize(
+    opt, stats = (optimize_fn or optimize)(
         Pose(t=nodes.t[:n], q=nodes.q[:n]), sub, node_mask[:n], linear_solver=linear_solver, **kw,
     )
     full = Pose(t=nodes.t.clone(), q=nodes.q.clone())

@@ -206,6 +206,7 @@ def run_slam(
     snapshot_every: int = 0,
     snapshot_fn=None,
     prefetch_depth: int = 3,
+    mesh=None,
 ) -> RunResult:
     """Host loop over ``slam_step``. ``scans`` yields ``((points, mask),
     stamp)`` numpy pairs; device stamps are relative to the first one
@@ -221,13 +222,14 @@ def run_slam(
     ``snapshot_every`` scans. Scans are prepared and uploaded
     ``prefetch_depth`` ahead on a thread. Each step (or chunk) ends by
     synchronizing the current stream, so ``step_ms`` holds its device work
-    but not the upload, nor a solve running on another stream."""
+    but not the upload, nor a solve running on another stream. ``mesh``
+    goes to every step (the sharded map and the dist-* solvers)."""
     t0 = time.perf_counter()
     if debug_dir is not None and chunk > 1:
         raise ValueError("--debug-dump requires chunk=1 (per-scan products)")
     log = logger or Logger(level=config.verbosity)
     if state is None:
-        state = slam.init_state(config, initial_pose, device=device)
+        state = slam.init_state(config, initial_pose, device=device, mesh=mesh)
     device = state.slam_pose.t.device
     cuda = device.type == "cuda"
     uploader = prefetch_mod.Uploader(device, slots=max(prefetch_depth, 0) + 2)
@@ -272,7 +274,7 @@ def run_slam(
         start_counts()
         stacked = pc.PointCloud(torch.stack([c.points for c in buf]),
                                 torch.stack([c.mask for c in buf]))
-        state, outs = slam.run_scans(state, stacked, config, stamps=stamp_buf)
+        state, outs = slam.run_scans(state, stacked, config, stamps=stamp_buf, mesh=mesh)
         if post_step is not None:
             state = post_step(state, outs)
         end_counts(live)
@@ -302,7 +304,7 @@ def run_slam(
             continue
         start_counts()
         cloud = pc.PointCloud(*uploader.ready(tensors, event))
-        state, out = slam.slam_step(state, cloud, config, stamp=stamp)
+        state, out = slam.slam_step(state, cloud, config, stamp=stamp, mesh=mesh)
         if post_step is not None:
             state = post_step(state, out)
         if debug_dir is not None and n_dumps < debug_max_dumps:

@@ -3,7 +3,9 @@ the producers of ``icpslam_tpu/io/synthetic.py`` that the runner uses).
 
 Same seeds, same arrays as the JAX package: the room loop
 (``make_room_world``, ``make_loop_trajectory``, ``render_scan``,
-``scan_stream``) and the KITTI-scale urban proxy (``make_urban_world``,
+``scan_stream``), the street grid and the figure eight
+(``make_street_grid_world``, ``make_figure_eight_trajectory``) and the
+KITTI-scale urban proxy (``make_urban_world``,
 ``make_urban_drive``, ``render_velodyne_scan``, ``velodyne_stream``),
 idealized by default or with the sensor physics of the JAX render:
 motion distortion across the sweep, range-dependent noise, dropout and
@@ -69,6 +71,53 @@ def make_room_world(
         rng.uniform(0, height, n_pillar),
     ])
     return np.concatenate(parts).astype(np.float32)
+
+
+def make_street_grid_world(
+    seed: int = 0,
+    n_points: int = 60000,
+    blocks: int = 2,
+    block_size: float = 24.0,
+    street_width: float = 8.0,
+    height: float = 6.0,
+) -> np.ndarray:
+    """A grid of building blocks separated by streets: a ground plane and
+    the blocks' walls, for long multi-loop trajectories."""
+    rng = np.random.RandomState(seed)
+    pitch = block_size + street_width
+    extent = blocks * pitch + street_width
+    n_ground = n_points // 3
+    parts = [np.c_[rng.uniform(0, extent, (n_ground, 2)), np.zeros(n_ground)]]
+    n_wall = (n_points - n_ground) // (blocks * blocks * 4)
+    for bx in range(blocks):
+        for by in range(blocks):
+            x0 = street_width + bx * pitch
+            y0 = street_width + by * pitch
+            x1, y1 = x0 + block_size, y0 + block_size
+            parts.extend([
+                np.c_[rng.uniform(x0, x1, n_wall), np.full(n_wall, y0), rng.uniform(0, height, n_wall)],
+                np.c_[rng.uniform(x0, x1, n_wall), np.full(n_wall, y1), rng.uniform(0, height, n_wall)],
+                np.c_[np.full(n_wall, x0), rng.uniform(y0, y1, n_wall), rng.uniform(0, height, n_wall)],
+                np.c_[np.full(n_wall, x1), rng.uniform(y0, y1, n_wall), rng.uniform(0, height, n_wall)],
+            ])
+    return np.concatenate(parts).astype(np.float32)
+
+
+def make_figure_eight_trajectory(
+    n_poses: int = 120,
+    radius: float = 16.0,
+    center: Tuple[float, float] = (20.0, 20.0),
+    z: float = 1.2,
+) -> Trajectory:
+    """A figure eight (lemniscate of Gerono), heading along the curve; it
+    crosses itself, so loop closures fire away from the start too."""
+    t = np.linspace(0, 2 * np.pi, n_poses, endpoint=False)
+    x = center[0] + radius * np.sin(t)
+    y = center[1] + radius * np.sin(t) * np.cos(t)
+    dx = radius * np.cos(t)
+    dy = radius * (np.cos(t) ** 2 - np.sin(t) ** 2)
+    pos = np.c_[x, y, np.full(n_poses, z)]
+    return pos.astype(np.float32), _yaw_quats(np.arctan2(dy, dx)).astype(np.float32)
 
 
 def _yaw_quats(yaw: np.ndarray) -> np.ndarray:

@@ -47,10 +47,12 @@ def refine_and_grow(
     config,
     map_empty: bool,
     scan_covs: torch.Tensor | None = None,
+    mesh=None,
 ) -> RefineResult:
     """Refine ``raw_pose`` against the map and grow the map with the scan.
 
-    ``map_empty`` is the host value of ``map.size == 0``.
+    ``map_empty`` is the host value of ``map.size == 0``; ``mesh`` is the
+    mesh of ``map_backend='sharded'`` (``parallel/mesh.py``).
     """
     icfg = config.icp_mapping
     res_m = config.map_resolution
@@ -79,7 +81,7 @@ def refine_and_grow(
             )
         else:
             grown = map_backend.insert(
-                map_, cloud_in_map, res_m, eviction=config.map_eviction
+                map_, cloud_in_map, res_m, eviction=config.map_eviction, mesh=mesh
             )
         return RefineResult(
             success=torch.tensor(False, device=dev),
@@ -99,7 +101,7 @@ def refine_and_grow(
     def one_round(pose: Pose):
         in_map = pc.transform(pose, scan)
         nn, map_covs = map_backend.query_nn_with_covs(
-            map_, in_map.points, in_map.mask, config, prune_beyond=prune
+            map_, in_map.points, in_map.mask, config, prune_beyond=prune, mesh=mesh
         )
         inv = se3.inverse(pose)
         nn_robot = pc.PointCloud(
@@ -181,11 +183,11 @@ def refine_and_grow(
         if aligned_insert:
             final_map = map_backend.insert_reusing_nn(
                 map_, grow_cloud, res_m, nn.dist2, covs=grow_covs,
-                eviction=config.map_eviction,
+                eviction=config.map_eviction, mesh=mesh,
             )
         else:
             final_map = map_backend.insert(
-                map_, grow_cloud, res_m, eviction=config.map_eviction
+                map_, grow_cloud, res_m, eviction=config.map_eviction, mesh=mesh
             )
     else:
         final_map = map_

@@ -53,19 +53,19 @@ class SnapshotSolve(NamedTuple):
 
 
 def solve_snapshot(state: slam.SlamState, config, counts: dict, captured=None,
-                   copied=None) -> SnapshotSolve:
+                   copied=None, mesh=None) -> SnapshotSolve:
     """The graph solve on a snapshot of the live graph: the full solve when
     a loop closure arrived since the last solve (or without
     ``graph_incremental``), the window solve otherwise, as JAX's
     ``solve_snapshot`` chooses. ``counts``: the host values of the keyframe,
     edge and loop-since-last-solve counters (``SlamOutput.host``).
-    ``captured`` and ``copied`` as in ``slam.graph_solve``."""
+    ``captured``, ``copied`` and ``mesh`` as in ``slam.graph_solve``."""
     store = state.keyframes
     full = not config.graph_incremental or counts["lc_since_opt"] > 0
     last = torch.clamp(store.count - 1, min=0).long()
     last_odom = se3.index(store.pose_odom, last)
     snap_count, snap_lc = store.count.clone(), state.lc_since_opt.clone()
-    nodes, stats = slam.graph_solve(state, config, counts, full, captured, copied)
+    nodes, stats = slam.graph_solve(state, config, counts, full, captured, copied, mesh=mesh)
     m2o = se3.normalize(se3.compose(se3.index(nodes, last), se3.inverse(last_odom)))
     return SnapshotSolve(nodes=nodes, map_to_odom=m2o, final_cost=stats.final_cost,
                          snapshot_count=snap_count, snapshot_lc=snap_lc)
@@ -136,13 +136,22 @@ class DeferredBackend:
     excepted) on a side stream; on the CPU they run eagerly at the launch.
     ``captured``: the ``graph/captured.CapturedSolves`` to replay from
     (default: the backend's own, made at its first call on the card).
+    ``mesh``: the mesh a ``dist-*`` solver shards the solve over (required
+    for those, as in JAX).
     """
 
-    def __init__(self, config, max_lag: int = 8, check_every: int = 1, captured=None):
+    def __init__(self, config, max_lag: int = 8, check_every: int = 1, captured=None,
+                 mesh=None):
         if not config.defer_optimization:
             raise ValueError("config.defer_optimization must be True")
+        if config.graph_linear_solver.startswith("dist-") and mesh is None:
+            raise ValueError(
+                f"graph_linear_solver='{config.graph_linear_solver}' "
+                "requires mesh= (the deferred solve runs edge-sharded)"
+            )
         slam.check_supported(config)
         self.config = config
+        self.mesh = mesh
         self.max_lag = max_lag
         self.check_every = max(1, check_every)
         self._device: Optional[torch.device] = None
@@ -174,14 +183,15 @@ class DeferredBackend:
 
     def _launch(self, state: slam.SlamState, counts: dict) -> None:
         if self._side is None:
-            self._pending = solve_snapshot(state, self.config, counts)
+            self._pending = solve_snapshot(state, self.config, counts, mesh=self.mesh)
         else:
             n_graphs = len(self.captured.graphs)
             main = torch.cuda.current_stream(self._device)
             copied = torch.cuda.Event()
             self._side.wait_stream(main)
             with torch.cuda.stream(self._side):
-                self._pending = solve_snapshot(state, self.config, counts, self.captured, copied)
+                self._pending = solve_snapshot(state, self.config, counts, self.captured, copied,
+                                               mesh=self.mesh)
                 self._done = torch.cuda.Event()
                 self._done.record()
             # the stream's next writes to the store come after the snapshot
@@ -243,7 +253,7 @@ class DeferredBackend:
         if kf_since >= self.config.keyframes_window:
             counts = dict(keyframes=n_kf, edges=min(n_edges, state.edges.capacity),
                           lc_since_opt=lc_since)
-            solve = solve_snapshot(state, self.config, counts, self.captured)
+            solve = solve_snapshot(state, self.config, counts, self.captured, mesh=self.mesh)
             state = fold(state, solve, self.config)
             self.num_launched += 1
             self.num_folded += 1

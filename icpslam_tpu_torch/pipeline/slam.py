@@ -24,13 +24,18 @@ the device, small constants copied without a stream sync.
 With ``collect_debug`` the output carries the map-NN cloud and the
 odometry pose before refinement (``DebugInfo``), as JAX's does.
 :func:`run_scans` drives a chunk of scans, step by step, and stacks the
-outputs. Parts of the JAX step that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item instead of doing
-something else: the sharded map and the dist-* solvers.
+outputs.
+
+``mesh`` (``parallel/mesh.py``) is the mesh of shards that
+``map_backend='sharded'`` partitions the map over and that the
+``dist-*`` linear solvers shard the full solve's edges over; the rest of
+the step is replicated. Without one those options raise JAX's
+``ValueError``s.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -45,6 +50,7 @@ from icpslam_tpu_torch.graph import pose_graph as pg
 from icpslam_tpu_torch.mapping import backend as map_backend
 from icpslam_tpu_torch.mapping import scan_to_map
 from icpslam_tpu_torch.ops import icp as icp_ops
+from icpslam_tpu_torch.parallel import dist_graph
 from icpslam_tpu_torch.pipeline import odometry as odo
 from icpslam_tpu_torch.pipeline import robot_odometry as robot_odo
 from icpslam_tpu_torch.utils.device import resolve as resolve_device
@@ -106,10 +112,14 @@ class SlamOutput(NamedTuple):
     debug: Optional[DebugInfo] = None  # only with config.collect_debug
 
 
+_SOLVERS = ("auto", "direct", "pcg", "schur")
+
+
 def check_supported(config) -> None:
-    """Raise ``NotImplementedError`` for configurations outside the port and
-    ``ValueError`` for invalid ones. Unlike JAX, an unknown
-    ``keyframe_eviction`` is refused instead of acting as 'marginalize'."""
+    """Raise ``ValueError`` for invalid configurations. Unlike JAX, an unknown
+    ``keyframe_eviction`` is refused instead of acting as 'marginalize',
+    and an unknown ``map_backend`` or ``graph_linear_solver`` is refused
+    instead of acting as 'voxel' or failing inside the first solve."""
     odo.check_supported(config)
     map_backend.check_supported(config)
     if config.keyframe_eviction not in ("none", "marginalize"):
@@ -121,22 +131,48 @@ def check_supported(config) -> None:
         raise ValueError(
             "keyframe_eviction='marginalize' needs max_keyframes > keyframe_protect_recent + 1"
         )
-    if config.graph_linear_solver not in ("auto", "direct", "pcg", "schur"):
-        raise pg._not_ported(config.graph_linear_solver)
+    solver = config.graph_linear_solver
+    if solver not in _SOLVERS and solver not in tuple("dist-" + s for s in _SOLVERS):
+        raise ValueError(f"graph_linear_solver={solver!r}: expected one of {_SOLVERS} or "
+                         "their dist-* variants")
 
 
-def init_state(config, initial_pose: Optional[Pose] = None, device=None) -> SlamState:
-    """The empty SLAM state on ``device`` (default: the CUDA card; raises
-    without one — pass ``device="cpu"`` for the CPU)."""
+def check_mesh(config, mesh) -> None:
+    """JAX's ``ValueError``s (``slam.py:477-490``): the sharded map and the
+    dist-* solvers need a mesh, and the mesh's shard count must equal
+    ``config.map_shards``."""
+    if config.map_backend == "sharded":
+        if mesh is None:
+            raise ValueError("map_backend='sharded' requires a mesh")
+        if mesh.size != config.map_shards:
+            raise ValueError(
+                f"mesh has {mesh.size} devices but config.map_shards="
+                f"{config.map_shards}; they must match (the map's leading "
+                "device axis is sized by map_shards)"
+            )
+    if config.graph_linear_solver.startswith("dist-") and mesh is None:
+        raise ValueError(
+            f"graph_linear_solver='{config.graph_linear_solver}' requires a "
+            "mesh (the windowed solve runs edge-sharded across it)"
+        )
+
+
+def init_state(config, initial_pose: Optional[Pose] = None, device=None,
+               mesh=None) -> SlamState:
+    """The empty SLAM state on ``device`` (default: the CUDA card, or the
+    mesh's device; raises without one — pass ``device="cpu"`` for the
+    CPU). No mesh is needed, as in JAX: the sharded map then has all
+    ``config.map_shards`` shards; on a mesh with a process group it has
+    this rank's ``mesh.local``."""
     check_supported(config)
-    device = resolve_device(device)
+    device = resolve_device(device if device is not None or mesh is None else mesh.device)
     i32 = torch.int32
     return SlamState(
         odom=odo.init_state(config, initial_pose, device=device),
         robot_odom=robot_odo.init_state(device=device),
         wheel_at_last_kf=se3.identity(device=device),
         wheel_kf_valid=torch.tensor(False, device=device),
-        map=map_backend.empty(config, device=device),
+        map=map_backend.empty(config, device=device, mesh=mesh),
         keyframes=kf.empty(config.max_keyframes, config.max_points, device=device),
         edges=pg.empty_edges(config.max_edges, device=device),
         map_to_odom=se3.identity(device=device),
@@ -248,7 +284,7 @@ def _try_loop_closure(
 
 
 def graph_solve(state: SlamState, config, counts: dict, full: bool, captured=None,
-                copied=None) -> Tuple[Pose, pg.SolveStats]:
+                copied=None, mesh=None) -> Tuple[Pose, pg.SolveStats]:
     """The full (bucketed) or the window solve of the state's graph.
     ``counts`` holds the host values of the keyframe and edge counts.
 
@@ -256,6 +292,11 @@ def graph_solve(state: SlamState, config, counts: dict, full: bool, captured=Non
     graph replay, Schur excepted; without it, it runs eagerly. ``copied``,
     a CUDA event, is recorded once every read of ``state`` is enqueued:
     after the copy into the graph's inputs, or after an eager solve.
+
+    A ``dist-*`` solver runs the full solve edge-sharded over ``mesh``
+    (``parallel/dist_graph.optimize`` per bucket, JAX's ``optimize_fn``);
+    it is captured only on a mesh without a process group. The window
+    solve stays replicated, as in JAX.
     """
     store, edges = state.keyframes, state.edges
     mask = store.valid_mask()
@@ -264,12 +305,21 @@ def graph_solve(state: SlamState, config, counts: dict, full: bool, captured=Non
         min_bucket = config.graph_bucket_min if config.graph_bucketing else store.capacity
         bucket = pg.bucket_size(counts["keyframes"], counts["edges"], store.capacity,
                                 edges.capacity, min_bucket)
-        solver = pg.resolve_linear_solver(config.graph_linear_solver, bucket)
-        if captured is not None and solver != "schur":
-            g = captured.prepare_full(store.pose_graph, edges, mask, bucket, solver, **kw)
+        name = config.graph_linear_solver
+        dist_mesh = mesh if name.startswith("dist-") else None
+        if name.startswith("dist-") and mesh is None:
+            raise ValueError(f"graph_linear_solver='{name}' requires a mesh")
+        solver = pg.resolve_linear_solver(name.removeprefix("dist-"), bucket)
+        eager_only = solver == "schur" or (dist_mesh is not None and dist_mesh.group is not None)
+        if captured is not None and not eager_only:
+            g = captured.prepare_full(store.pose_graph, edges, mask, bucket, solver,
+                                      mesh=dist_mesh, **kw)
         else:
             g = None
-            out = pg.solve_bucket(store.pose_graph, edges, mask, bucket, solver, **kw)
+            optimize_fn = (None if dist_mesh is None
+                           else functools.partial(dist_graph.optimize, mesh=dist_mesh))
+            out = pg.solve_bucket(store.pose_graph, edges, mask, bucket, solver,
+                                  optimize_fn=optimize_fn, **kw)
     elif captured is not None:
         g = captured.prepare_window(store.pose_graph, edges, mask, store.count,
                                     config.graph_window, **kw)
@@ -282,7 +332,8 @@ def graph_solve(state: SlamState, config, counts: dict, full: bool, captured=Non
     return g.run() if g is not None else out
 
 
-def _optimize(state: SlamState, config, counts: dict) -> Tuple[SlamState, torch.Tensor]:
+def _optimize(state: SlamState, config, counts: dict, mesh=None
+              ) -> Tuple[SlamState, torch.Tensor]:
     """The graph solve, then the map reset and the ``map→odom`` recompute.
     ``counts`` holds the host values of the keyframe, edge and
     loop-since-last-solve counters.
@@ -296,7 +347,7 @@ def _optimize(state: SlamState, config, counts: dict) -> Tuple[SlamState, torch.
     full = (not config.graph_incremental or counts["lc_since_opt"] > 0
             or counts["keyframes"] <= config.graph_window)
     captured = captured_mod.for_device(store.count.device)
-    opt_nodes, stats = graph_solve(state, config, counts, full, captured)
+    opt_nodes, stats = graph_solve(state, config, counts, full, captured, mesh=mesh)
     new_store = kf.set_graph_poses(store, opt_nodes)
     m2o = se3.compose(kf.latest(new_store), se3.inverse(kf.latest_odom(new_store)))
     new_map = map_backend.reset(state.map) if config.reset_map_on_optimize else state.map
@@ -315,21 +366,24 @@ def _optimize(state: SlamState, config, counts: dict) -> Tuple[SlamState, torch.
 
 
 def slam_step(
-    state: SlamState, raw_scan: pc.PointCloud, config, stamp: float | None = None
+    state: SlamState, raw_scan: pc.PointCloud, config, stamp: float | None = None, mesh=None
 ) -> Tuple[SlamState, SlamOutput]:
     """Process one raw sensor-frame scan through the whole pipeline.
 
     ``stamp`` is the scan's time in seconds (origin-relative); without it
-    the state keeps a +1.0 scan counter.
+    the state keeps a +1.0 scan counter. ``mesh``: the mesh of the sharded
+    map and the dist-* solvers (JAX's ``mesh``); every rank of a mesh with
+    a process group steps the same scan.
     """
     check_supported(config)
+    check_mesh(config, mesh)
     dev = raw_scan.points.device
     f32, i32 = torch.float32, torch.int32
 
     # the small counters every host branch below needs, in one read
     flags = to_host(torch.stack([
         state.odom.initialized.to(i32), state.odom.skip_count.to(i32),
-        state.keyframes.count, state.map.size, state.kf_since_opt,
+        state.keyframes.count, map_backend.total_size(state.map, mesh), state.kf_since_opt,
         state.lc_since_opt, state.edges.count, state.robot_odom.initialized.to(i32),
         state.wheel_kf_valid.to(i32),
     ]))
@@ -359,7 +413,7 @@ def slam_step(
     if do_refine:
         r = scan_to_map.refine_and_grow(
             state.map, oout.filtered, raw_pose, config, map_empty=map_size == 0,
-            scan_covs=oout.filtered_covs if covs_reusable else None,
+            scan_covs=oout.filtered_covs if covs_reusable else None, mesh=mesh,
         )
         new_map, slam_pose, refined, refine_hess = r.map, r.refined_pose, r.success, r.hessian
         nn_points, nn_mask = r.nn_points, r.nn_mask
@@ -453,7 +507,7 @@ def slam_step(
     n_edges = min(n_edges, state.edges.capacity)
     if do_opt:
         counts = dict(keyframes=n_kf, edges=n_edges, lc_since_opt=lc_since)
-        state, opt_cost = _optimize(state, config, counts)
+        state, opt_cost = _optimize(state, config, counts, mesh)
         kf_since = lc_since = 0
     else:
         opt_cost = torch.full((), float("inf"), device=dev)
@@ -462,7 +516,7 @@ def slam_step(
     want_t = torch.full((), want_kf, dtype=torch.bool, device=dev)
     loop_t = torch.full((), loop_added, dtype=i32, device=dev)
     opt_t = torch.full((), do_opt, dtype=torch.bool, device=dev)
-    map_total = map_backend.total_size(state.map)
+    map_total = map_backend.total_size(state.map, mesh)
     packed = torch.cat([
         pose_map.t.to(f32).reshape(-1), pose_map.q.to(f32).reshape(-1),
         torch.stack([
@@ -504,7 +558,7 @@ def _stack(outs):
 
 
 def run_scans(
-    state: SlamState, scans: pc.PointCloud, config, stamps=None
+    state: SlamState, scans: pc.PointCloud, config, stamps=None, mesh=None
 ) -> Tuple[SlamState, SlamOutput]:
     """A chunk of scans through :func:`slam_step`: ``scans`` is a stacked
     cloud ``(T, N, 3)`` / ``(T, N)``, ``stamps`` T stamps or None. The
@@ -517,7 +571,7 @@ def run_scans(
     for i in range(scans.points.shape[0]):
         stamp = None if stamps is None else float(stamps[i])
         state, out = slam_step(state, pc.PointCloud(scans.points[i], scans.mask[i]), config,
-                               stamp=stamp)
+                               stamp=stamp, mesh=mesh)
         hosts.append(out.host)
         outs.append(out._replace(host=None))
     return state, _stack(outs)._replace(host=hosts[-1])

@@ -6,8 +6,8 @@ one entry per tensor, keyed by its path through the NamedTuples as JAX's
 ``.map.size``, ...); None fields hold no entry, as in JAX. So a JAX
 checkpoint loads into the port and the port's into JAX, leaf for leaf.
 The map is derivable: ``rerender_map`` rebuilds it from the keyframe
-clouds at their graph poses (the point map or the voxel map; the sharded
-map is not ported, ROADMAP Queue 1 item 7).
+clouds at their graph poses (the point map, the voxel map, or the
+sharded map over its mesh, re-sharded by the same spatial hash).
 """
 
 from __future__ import annotations
@@ -76,20 +76,17 @@ def load(path: str, template: Any) -> Any:
     return _rebuild(template, values)
 
 
-def rerender_map(state, config):
+def rerender_map(state, config, mesh=None):
     """The state with its map rebuilt from the keyframe clouds at their
     graph poses (used on resume). A plane-mode point map gets each
-    keyframe's covariances rotated into the map frame, as JAX's does."""
-    if config.map_backend == "sharded":
-        raise NotImplementedError(
-            "rerender_map with map_backend='sharded' is not ported yet — "
-            "ROADMAP.md Queue 1 item 7, 'parallel/' (the sharded map)"
-        )
+    keyframe's covariances rotated into the map frame, as JAX's does.
+    ``mesh`` is required for ``map_backend='sharded'``: the rebuilt map is
+    re-sharded by the same spatial hash."""
     from icpslam_tpu_torch.pipeline.odometry import compute_covariances
 
     store = state.keyframes
     n = int(store.count)
-    m = map_backend.empty(config, device=store.points.device)
+    m = map_backend.empty(config, device=store.points.device, mesh=mesh)
     with_covs = (
         isinstance(m, pm.PointMap)
         and config.icp_mapping.mode == "plane"
@@ -110,5 +107,6 @@ def rerender_map(state, config):
             m = pm.insert_with_nn(m, world, config.map_resolution, nn.dist2, covs=covs_w,
                                   eviction=config.map_eviction)
         else:
-            m = map_backend.insert(m, world, config.map_resolution, eviction=config.map_eviction)
+            m = map_backend.insert(m, world, config.map_resolution, eviction=config.map_eviction,
+                                   mesh=mesh)
     return state._replace(map=m)

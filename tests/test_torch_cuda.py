@@ -53,6 +53,8 @@ import torch
 # workers on the host's cores beside XLA's own pool
 torch.set_num_threads(1)
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -489,6 +491,43 @@ def test_endpoint_sums_are_deterministic_and_match_index_add(dev):
     assert torch.equal(got, at(a.to(dev), b.to(dev)))
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["direct", "pcg"])
+def test_captured_dist_solve_equals_eager(dev, solver):
+    from icpslam_tpu_torch.parallel import dist_graph
+    from icpslam_tpu_torch.parallel import mesh as mesh_lib
+
+    nodes, edges, mask, m = _loop_graph(100, 150, dev)
+    mesh = mesh_lib.make_mesh(8, device=dev)
+    kw = dict(iterations=3, mode="lm")
+    solves = captured.CapturedSolves(dev)
+    replays, calls = dist_graph.optimize.replays, dist_graph.optimize.calls
+    got = solves.full(nodes, edges, mask, 128, solver, mesh=mesh, **kw)
+    assert (dist_graph.optimize.replays - replays, dist_graph.optimize.calls - calls) == (1, 0)
+    want = tpg.solve_bucket(nodes, edges, mask, 128, solver,
+                            optimize_fn=functools.partial(dist_graph.optimize, mesh=mesh), **kw)
+    torch.cuda.synchronize()
+    _same_solve(got, want)
+    _same_solve(got, tpg.solve_bucket(nodes, edges, mask, 128, solver, **kw))
+    # on a mesh with a process group the dist solve runs eager, not captured
+    grouped = mesh_lib.Mesh(size=8, group=object(), world=1, rank=0, device=mesh.device)
+    with pytest.raises(ValueError, match="process group"):
+        solves.full(nodes, edges, mask, 128, solver, mesh=grouped, **kw)
+
+
+@pytest.mark.cuda
+def test_batched_endpoint_sums_match_one_set_at_a_time(dev):
+    rng = np.random.RandomState(4)
+    ei = torch.tensor(rng.randint(0, 64, (8, 256)), device=dev)
+    ej = torch.tensor(rng.randint(0, 64, (8, 256)), device=dev)
+    a = torch.tensor(rng.randn(8, 256, 6), dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.randn(8, 256, 6), dtype=torch.float32, device=dev)
+    got = tpg._EndpointSum(ei, ej, 64, torch.float32)(a, b)
+    for s in range(8):
+        want = tpg._EndpointSum(ei[s], ej[s], 64, torch.float32)(a[s], b[s])
+        np.testing.assert_allclose(got[s].cpu().numpy(), want.cpu().numpy(), rtol=0, atol=1e-5)
 
 
 def _physics_pair(dev):

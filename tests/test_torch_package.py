@@ -1,7 +1,7 @@
 """The PyTorch port as a package: no JAX import, its own copy of the
 config held to the JAX one, the numpy scan producers against the JAX ones,
-kernel modules that import without a compiler, the
-NotImplementedError boundaries of the slice, and the runner's CLI."""
+kernel modules that import without a compiler, the options of every
+slice initialising, and the runner's CLI."""
 
 import torch
 
@@ -224,20 +224,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tnn.nearest_neighbors(q.double(), q.double(), m)
 
 
-_OUT_OF_SLICE = {
-    "sharded-map": dict(map_backend="sharded"),
-    "dist-direct": dict(graph_linear_solver="dist-direct"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(_OUT_OF_SLICE))
-def test_out_of_slice_config_raises(name):
-    cfg = tconfig.tiny_config(**_OUT_OF_SLICE[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tslam.init_state(cfg, device="cpu")
-
-
 _NOW_IN_SLICE = {
+    "sharded-map": dict(map_backend="sharded", map_shards=8),
+    "dist-direct": dict(graph_linear_solver="dist-direct"),
     "wheel-edges": dict(enable_wheel_odom_edges=True),
     "pcg": dict(graph_linear_solver="pcg"),
     "schur": dict(graph_linear_solver="schur"),
@@ -255,6 +244,9 @@ def test_now_in_slice_config_initialises(name):
     cfg = tconfig.tiny_config(**_NOW_IN_SLICE[name])
     state = tslam.init_state(cfg, device="cpu")
     assert int(state.keyframes.count) == 0 and int(state.edges.count) == 0
+    if cfg.map_backend == "sharded":
+        # no mesh needed, as in JAX: the map has all map_shards shards
+        assert all(leaf.shape[0] == 8 for leaf in state.map)
 
 
 @pytest.mark.parametrize("overrides", [dict(keyframe_eviction="drop"),
