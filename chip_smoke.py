@@ -55,7 +55,8 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    final cost within CAPTURED_COST relative, replay and eager ms (CUDA
    events, median of 5);
 11. the long mission deferred: the same scans as phase 9 (rendered once
-   for both) with ``defer_optimization`` and ``pipeline/deferred.py``'s
+   for both, in RENDER_WORKERS processes, held to the runner's stream)
+   with ``defer_optimization`` and ``pipeline/deferred.py``'s
    backend as the runner configures it (``check_every`` =
    ``keyframes_window``, ``max_lag`` 8): launched and folded (equal after
    ``flush``), evictions, PCG solves, folds across an eviction, graph
@@ -147,9 +148,47 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    NCCL_DIST) and ``sharded_nn`` (equal) against the mesh without a group;
    the group is destroyed afterwards.
 
-Phase 12 runs after phase 23, last. Each path (phases 4, 5, 8, 9, 11,
-13-20 and 23) is driven with every launch count set to 0 just before it and read
-just after. Kernel times (``ms``) are the device
+Phases 24-29 run the port's tools (``icpslam_tpu_torch/tools/``,
+``icpslam_tpu_torch/examples/``) as a user runs them, ``python -m ...`` in
+a subprocess with a time limit, in a git-ignored work directory of the
+checkout (``_chip_tools_*/``, removed afterwards), and read their
+artifacts back; a tool counts the kernels' launches in its own
+processes and reports them. They run one after another:
+
+24. ``tools.endurance --scans ENDURANCE_SCANS`` on phase 13's first scans,
+   written as the runner's scan cache (tag 1): six runner processes (A,
+   B1 + B2 resumed, C at a 1.0 m gate, C_frozen, D deferred), each with
+   finite poses and K1/K2 launched in every registered scan; A's, B2's
+   and D's ATE, the resume's end gap and tail RMSE ≤ PHYSICS_ATE; D
+   launched = folded; JAX's artifact keys and the card; each run's
+   ms/scan and peak memory beside phase 13's (C's store does not fill at
+   this depth: the full-length run shows the eviction);
+25. ``tools.kitti_tree_run`` on the same cache: loader native, ATE ≤
+   PHYSICS_ATE, K1/K2 in every registered scan;
+26. ``tools.sharded_endurance --scans SHARDED_SCANS`` (3 laps; 8 shards on
+   the card, no process group, and its voxel twin): a shard overflowed,
+   evictions and solves, finite poses, both ATEs ≤ SHARDED_END_ATE and
+   within SHARDED_END_DELTA of each other;
+27. ``tools.probe_step_budget`` and ``tools.probe_scan_to_map`` at the JAX
+   probes' configuration: each variant's ms/scan with its spread, each
+   knob's ms and iteration counts, all finite, the counts within [1,
+   max_iterations];
+28. ``tools.scaling_dcn`` and ``tools.elastic_dcn --device cuda`` refuse
+   one card within 10 s before spawning a rank (on two cards or more they
+   run there); then ``elastic_dcn.run_single`` on the card: D = 4 shards,
+   4 pairs, finite poses, K1 and K2 on every pair;
+29. ``examples.synthetic_city`` at its defaults with every export read back
+   (TUM, PLY, graph JSON, the checkpoint through ``checkpoint.load``, the
+   viewer), ≥ 1 loop closure, ATE ≤ max(CITY_ATE_FLOOR, 1.5 ×
+   JAX_CITY_ATE); ``examples.sharded_streaming --poses 16 --devices 8``:
+   a finite ATE, K1 and K2 launched, and at the end and at the run's
+   largest map (a solve clears it, and at scan 16 it is empty) the
+   shards' sizes summing to the mesh's total; the largest is not empty
+   and spread over more than one shard.
+
+Phase 12 runs after phase 29, last. Each path (phases 4, 5, 8, 9, 11,
+13-20, 23 and 28's ``run_single``) is driven with every launch count set
+to 0 just before it and read just after. Kernel times (``ms``) are the device
 time per wrapper call, calls enqueued back to back behind a spin kernel
 (``_device_ms``); plain versions are timed by CUDA events around single
 calls (``_timed``). ``bound_ms`` is the least time the card could take
@@ -240,6 +279,14 @@ BATCH_ATE = 0.10
 # phase 19: run_scans chunks over the slice; 40 = 5 x 8, and 6 leaves a
 # tail of 4 scans padded with 2 empty ones
 CHUNKS = (8, 6)
+# phases 24-26: the depth of the endurance and tree runs (phase 13's first
+# scans; six runner processes, each ~10 s of start-up on top) and of the
+# sharded endurance drive (3 laps, as JAX's tool runs max(3, scans / 120))
+ENDURANCE_SCANS = 30
+SHARDED_SCANS = 240
+# processes that render the long mission's scans (each scan's render
+# depends on its index and pose alone)
+RENDER_WORKERS = 8
 
 
 def _timed(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -972,6 +1019,46 @@ def _render(source, cfg, n):
     stream, gt = source(cfg, n, 10.0)
     scans = list(stream)
     print(f"    rendered {n} scans in {time.perf_counter() - t0:.1f} s")
+    return scans, gt
+
+
+def _render_slice(job):
+    """Scans ``[a, b)`` of the idealized urban proxy of ``n`` poses
+    (``runner.kitti_proxy_source`` without physics): scan i is rendered
+    from its pose with seed i alone, so a slice of the trajectory rendered
+    with seed ``a`` gives the same scans."""
+    from icpslam_tpu_torch.io import synthetic
+
+    capacity, n, a, b = job
+    world = synthetic.make_urban_world(seed=0)
+    t, q = synthetic.make_urban_drive(n_poses=n, rate_hz=10.0)
+    stream = synthetic.velodyne_stream(world, (t[a:b], q[a:b]), capacity, rate_hz=10.0, seed=a)
+    return [(pm, (a + j) / 10.0) for j, (pm, _) in enumerate(stream)]
+
+
+def _render_idealized(cfg, n):
+    """``_render(runner.kitti_proxy_source, cfg, n)`` in RENDER_WORKERS
+    processes; the first scan is held to the runner's stream and a slice
+    boundary to a slice that straddles it, bit for bit."""
+    import multiprocessing
+
+    import numpy as np
+
+    from icpslam_tpu_torch.io import runner
+
+    t0 = time.perf_counter()
+    stream, gt = runner.kitti_proxy_source(cfg, n, 10.0)
+    per = -(-n // RENDER_WORKERS)
+    jobs = [(cfg.max_raw_points, n, a, min(a + per, n)) for a in range(0, n, per)]
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        scans = [s for part in pool.map(_render_slice, jobs) for s in part]
+    checks = [(next(iter(stream)), scans[0])]
+    if n > per:
+        checks.append((_render_slice((cfg.max_raw_points, n, per - 1, per + 1))[1], scans[per]))
+    for ((p0, m0), s0), ((p1, m1), s1) in checks:
+        if not (np.array_equal(p0, p1) and np.array_equal(m0, m1) and s0 == s1):
+            raise AssertionError("the parallel render differs from the runner's stream")
+    print(f"    rendered {n} scans in {time.perf_counter() - t0:.1f} s ({len(jobs)} processes)")
     return scans, gt
 
 
@@ -2028,6 +2115,406 @@ def phase_nccl(dev, state, sharded_records):
             "ms_p50": s["step_ms_p50"], "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 24-29: the tools of icpslam_tpu_torch/tools/ and examples/, each
+# run as a user runs it (python -m ..., a subprocess with a time limit),
+# its artifact or summary read back; a tool's kernel launches are counted
+# in its own processes (from 0 at their start) and reported in the artifact
+# ---------------------------------------------------------------------------
+
+# the runner's scan-cache tag of the physics render (no INS de-skew)
+CACHE_TAG = 1
+ENDURANCE_KEYS = ("metric", "scans", "full_run", "half_run", "resumed_run", "resume_equivalence",
+                  "late_mission_scans_per_sec", "capacity_exhaustion_run",
+                  "capacity_exhaustion_frozen", "deferred_backend_run")
+SHARDED_KEYS = ("metric", "backend", "sharded", "single_device", "parity_ate_delta_m", "note")
+# tools/sharded_endurance.py: both drives within SHARDED_END_ATE, and
+# within SHARDED_END_DELTA of each other (JAX recorded 0.0985 and 0.0994 m
+# over 500 scans on the CPU, artifacts/sharded_endurance.json)
+SHARDED_END_ATE = 0.15
+SHARDED_END_DELTA = 0.02
+# JAX's examples/synthetic_city.py --cpu at its defaults (120 poses) gives
+# ATE 0.0303 m (20 loop-closure edges, 120 keyframes) on the CPU;
+# the port's run on the card within max(CITY_ATE_FLOOR, 1.5 x this)
+JAX_CITY_ATE = 0.0303
+CITY_ATE_FLOOR = 0.10
+
+
+def _tool(tag: str, module: str, args, timeout: float, check: bool = True):
+    """Run ``python -m module *args`` from the checkout's root in a
+    session of its own, which is killed whole when it ends or passes
+    ``timeout``: (stdout, stderr, seconds, exit code); with ``check`` a
+    non-zero exit raises."""
+    import os
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=here,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if proc.poll() is None:
+            proc.wait()
+    secs = time.perf_counter() - t0
+    if check and proc.returncode != 0:
+        raise AssertionError(f"[{tag}] {module} exited {proc.returncode}:\n{stderr[-3000:]}")
+    return stdout, stderr, secs, proc.returncode
+
+
+def _json_lines(out: str):
+    return [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+
+
+def _run_line(tag: str, s: dict) -> str:
+    n = s["scans"]
+    ate = f"ATE {s['ate_m']:.4f} m" if "ate_m" in s else "no ATE"
+    return (f"[24] {tag}: {n} scans, {ate}, {s['keyframes']} keyframes, "
+            f"{s['keyframe_evictions']} evictions, {s['loop_closures']} loop-closure edges, "
+            f"{s['optimizations']} solves ({s['pcg_solves']} PCG); ms/scan median "
+            f"{s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f} max {s['step_ms_max']:.2f}; "
+            f"first step {s['compile_ms']:.0f} ms; host syncs/scan "
+            f"{s['host_syncs_per_scan']:.2f}; launches/scan K1 {s['nn1_launches_per_scan']:.2f} "
+            f"K2 {s['knn_launches_per_scan']:.2f}; peak memory "
+            f"{s['peak_memory_bytes'] / 2**20:.1f} MiB; wall {s['_invocation_wall_s']} s")
+
+
+def _check_registered_launches(tag: str, s: dict) -> None:
+    missed = s["registered_scans_without_launch"]
+    if missed["nn1"] or missed["knn"] or not s["nn1_launches_per_scan"] > 0:
+        raise AssertionError(f"{tag}: K1/K2 not launched in every registered scan: {missed}")
+
+
+def _write_cache(rendered, work: str) -> str:
+    """The first ENDURANCE_SCANS of phase 13's scans as the runner's scan
+    cache (tag 1) in ``work``."""
+    import os
+
+    import numpy as np
+
+    scans, gt = rendered
+    n = ENDURANCE_SCANS
+    cache = os.path.join(work, "proxy.npz")
+    np.savez(cache, gt_t=gt[0][:n], gt_q=gt[1][:n], tag=CACHE_TAG,
+             **{f"s{i}": p[m] for i, ((p, m), _) in enumerate(scans[:n])})
+    return cache
+
+
+def phase_endurance(dev, cache: str, physics: dict, work: str):
+    """Phase 24: ``tools/endurance`` over the scan cache."""
+    import os
+
+    n = ENDURANCE_SCANS
+    out = os.path.join(work, "endurance.json")
+    _, _, secs, _ = _tool("24", "icpslam_tpu_torch.tools.endurance",
+                          ["--scans", str(n), "--cache", cache, "--out", out, "--device", str(dev)],
+                          timeout=900)
+    with open(out) as f:
+        art = json.load(f)
+    missing = [k for k in ENDURANCE_KEYS if k not in art]
+    if missing or "name" not in art.get("card", {}):
+        raise AssertionError(f"endurance artifact: missing {missing}, card {art.get('card')}")
+    runs = {"A": art["full_run"], "B1": art["half_run"], "B2": art["resumed_run"],
+            "C": art["capacity_exhaustion_run"], "C_frozen": art["capacity_exhaustion_frozen"],
+            "D": art["deferred_backend_run"]}
+    p13 = physics["physics"]
+    print(f"[24] endurance, {n} scans, six runner processes in {secs:.1f} s; card "
+          f"{art['card']['name']}, {art['card']['power_limit']}; phase 13 (500 scans, one "
+          f"process): ms/scan {_fmt(p13['ms'])}, peak memory "
+          f"{p13['peak_bytes'] / 2**20:.1f} MiB")
+    for tag, s in runs.items():
+        print(_run_line(tag, s))
+        if not s["poses_finite"]:
+            raise AssertionError(f"endurance {tag}: non-finite poses")
+        _check_registered_launches(f"endurance {tag}", s)
+    for tag in ("A", "B2", "D"):
+        if not runs[tag]["ate_m"] <= PHYSICS_ATE:
+            raise AssertionError(f"endurance {tag}: ATE {runs[tag]['ate_m']} > {PHYSICS_ATE} m")
+    eq = art["resume_equivalence"]
+    print(f"[24] resume: end gap {eq['end_gap_m']:.4f} m, tail RMSE {eq['tail_rmse_m']:.4f} m "
+          f"(B2 resumed {runs['B2']['resumed_keyframes']} keyframes); late-mission "
+          f"{art['late_mission_scans_per_sec']:.2f} scans/s; D launched "
+          f"{runs['D']['deferred_launched']}, folded {runs['D']['deferred_folded']}")
+    if not (eq["end_gap_m"] <= PHYSICS_ATE and eq["tail_rmse_m"] <= PHYSICS_ATE):
+        raise AssertionError(f"endurance resume: {eq}")
+    if runs["D"]["deferred_launched"] != runs["D"]["deferred_folded"]:
+        raise AssertionError("endurance D: deferred solves launched and folded differ")
+    c = runs["C"]
+    print(f"[24] C at {n} scans: {c['keyframes']} of 512 keyframes, "
+          f"{c['keyframe_evictions']} evictions"
+          + ("; the store does not fill this short: the full-length run (2,000 scans) shows "
+             "the eviction" if c["keyframes"] < 512 else ""))
+    return art
+
+
+def phase_tree_run(dev, work: str, cache: str):
+    """Phase 25: ``tools/kitti_tree_run`` on phase 24's cache; the tree is
+    written inside ``work`` (removed afterwards)."""
+    import os
+
+    _, _, secs, _ = _tool("25", "icpslam_tpu_torch.tools.kitti_tree_run",
+                          ["--cache", cache, "--scans", str(ENDURANCE_SCANS), "--root",
+                           os.path.join(work, "tree"), "--out", os.path.join(work, "tree.json"),
+                           "--device", str(dev)], timeout=600)
+    with open(os.path.join(work, "tree.json")) as f:
+        s = json.load(f)
+    print(f"[25] KITTI tree, {s['scans']} scans, in {secs:.1f} s: ATE {s['ate_m']:.4f} m, "
+          f"accepted {s['accepted']}, {s['keyframes']} keyframes; ms/scan median "
+          f"{s['step_ms_p50']:.2f} p90 {s['step_ms_p90']:.2f}; launches/scan K1 "
+          f"{s['nn1_launches_per_scan']:.2f} K2 {s['knn_launches_per_scan']:.2f}; loader "
+          f"{s['loader']}; peak memory {s['peak_memory_bytes'] / 2**20:.1f} MiB")
+    if s["loader"] != "native":
+        raise AssertionError(f"tree run: loader {s['loader']}")
+    if not s["ate_m"] <= PHYSICS_ATE:
+        raise AssertionError(f"tree run: ATE {s['ate_m']} > {PHYSICS_ATE} m")
+    if not s["poses_finite"]:
+        raise AssertionError("tree run: non-finite poses")
+    _check_registered_launches("tree run", s)
+    return s
+
+
+def phase_sharded_endurance(dev, work: str):
+    """Phase 26: ``tools/sharded_endurance`` over SHARDED_SCANS scans, 8
+    shards on the card with no process group, and its voxel twin."""
+    import os
+
+    _, _, secs, _ = _tool("26", "icpslam_tpu_torch.tools.sharded_endurance",
+                          ["--scans", str(SHARDED_SCANS), "--out", os.path.join(work, "sharded.json"),
+                           "--device", str(dev)], timeout=600)
+    with open(os.path.join(work, "sharded.json")) as f:
+        art = json.load(f)
+    missing = [k for k in SHARDED_KEYS if k not in art]
+    if missing:
+        raise AssertionError(f"sharded endurance artifact: missing {missing}")
+    rs, rv, per = art["sharded"], art["single_device"], art["sharded"]["per_shard"]
+    for tag, r in (("sharded", rs), ("voxel", rv)):
+        print(f"[26] {tag}: {r['scans']} scans in {r['wall_s']} s ({1e3 * r['wall_s'] / r['scans']:.2f}"
+              f" ms/scan), ATE {r['ate_m']:.4f} m, {r['keyframes']} keyframes, "
+              f"{r['keyframe_evictions']} evictions, {r['loop_closures']} loop-closure edges, "
+              f"{r['optimizations']} solves, map {r['map_size']} (overflow {r['map_overflow']}); "
+              f"launches K1 {r['launches']['nn1']} K2 {r['launches']['knn']}")
+        if not r["poses_finite"]:
+            raise AssertionError(f"sharded endurance {tag}: non-finite poses")
+        if not r["ate_m"] <= SHARDED_END_ATE:
+            raise AssertionError(f"sharded endurance {tag}: ATE {r['ate_m']} > {SHARDED_END_ATE}")
+        if not (r["launches"]["nn1"] > 0 and r["launches"]["knn"] > 0):
+            raise AssertionError(f"sharded endurance {tag}: launches {r['launches']}")
+    print(f"[26] per shard: sizes {per['sizes']}, overflow {per['overflow']}; |dATE| "
+          f"{art['parity_ate_delta_m']:.4f} m; {secs:.1f} s in all")
+    if len(per["sizes"]) != 8 or not max(per["overflow"]) > 0:
+        raise AssertionError(f"sharded endurance: no shard overflowed: {per}")
+    if not (rs["keyframe_evictions"] > 0 and rs["optimizations"] > 0):
+        raise AssertionError("sharded endurance: no eviction or no solve")
+    if not art["parity_ate_delta_m"] <= SHARDED_END_DELTA:
+        raise AssertionError(f"sharded endurance: |dATE| {art['parity_ate_delta_m']} m")
+    return art
+
+
+def phase_probes(dev):
+    """Phase 27: ``tools/probe_step_budget`` and ``tools/probe_scan_to_map``
+    at the JAX probes' configuration."""
+    import math
+
+    out, _, secs, _ = _tool("27", "icpslam_tpu_torch.tools.probe_step_budget",
+                            ["--device", str(dev)], timeout=600)
+    budget = [l for l in _json_lines(out) if "ms_per_scan" in l]
+    full = budget[0]["ms_per_scan"]
+    for l in budget:
+        print(f"[27] step budget {l['variant']:>20}: {l['ms_per_scan']:.2f} ms/scan (spread "
+              f"{l['spread'][0]:.2f}-{l['spread'][1]:.2f}; {l['ms_per_scan'] - full:+.2f} against "
+              f"full), host syncs/scan {l['host_syncs_per_scan']:.2f}, K1 "
+              f"{l['k1_launches_per_scan']:.2f} K2 {l['k2_launches_per_scan']:.2f} per scan")
+        if not all(math.isfinite(x) for x in [l["ms_per_scan"], *l["spread"]]):
+            raise AssertionError(f"step budget: {l}")
+    if len(budget) != 7 or not budget[0]["k1_launches_per_scan"] > 0:
+        raise AssertionError(f"step budget: {budget}")
+    out, _, secs2, _ = _tool("27", "icpslam_tpu_torch.tools.probe_scan_to_map",
+                             ["--device", str(dev)], timeout=600)
+    knobs = [l for l in _json_lines(out) if "probe" in l]
+    for l in knobs:
+        print(f"[27] scan-to-map {l['probe']:>15}: {l['ms']:.2f} ms/call, iterations "
+              f"{l['iters']}, map fill {l['map_fill']}, host syncs/call "
+              f"{l['host_syncs_per_call']:.2f}, K1 {l['k1_launches_per_call']:.2f} per call")
+        if not (math.isfinite(l["ms"]) and all(1 <= i <= l["max_iterations"] for i in l["iters"])):
+            raise AssertionError(f"scan-to-map probe: {l}")
+    if len(knobs) != 6:
+        raise AssertionError(f"scan-to-map probe: {knobs}")
+    print(f"[27] probes in {secs:.1f} s and {secs2:.1f} s")
+    return {"step_budget": budget, "scan_to_map": knobs}
+
+
+def phase_dcn_refusal(work: str) -> dict:
+    """Phase 28, first half: ``tools.scaling_dcn`` and ``tools.elastic_dcn
+    --device cuda``; on one card each must exit non-zero within 10 s,
+    naming the card count, before spawning a rank. With two cards or more
+    both run on the cards."""
+    import os
+
+    import torch
+
+    from icpslam_tpu_torch.tools import _dcn
+
+    cards = torch.cuda.device_count()
+    out = {"cards": cards}
+    for name in ("scaling_dcn", "elastic_dcn"):
+        art = os.path.join(work, f"{name}.json")
+        stdout, stderr, secs, code = _tool("28", f"icpslam_tpu_torch.tools.{name}",
+                                           ["--device", "cuda", "--out", art], timeout=900,
+                                           check=cards >= _dcn.RANKS)
+        if cards < _dcn.RANKS:
+            said = stderr.strip().splitlines()[-1] if stderr.strip() else ""
+            print(f"[28] {name} --device cuda on {cards} card: exit {code} in {secs:.1f} s: {said}")
+            if code == 0 or secs > 10 or f"has {cards}" not in said:
+                raise AssertionError(f"{name} did not refuse one card: {stderr[-2000:]}")
+            if "proc0" in stdout or os.path.exists(art):
+                raise AssertionError(f"{name} spawned a rank on one card")
+        else:
+            with open(art) as f:
+                out[name] = json.load(f)
+            print(f"[28] {name} on {cards} cards in {secs:.1f} s: {out[name]}")
+    return out
+
+
+def phase_dcn_single(dev) -> dict:
+    """Phase 28, second half: the degraded workload
+    (``elastic_dcn.run_single``) on the card, D = 4 shards in one process."""
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.tools import _dcn, elastic_dcn
+
+    for fn in runner.KERNELS.values():
+        fn.launches = 0
+    res = elastic_dcn.run_single(str(dev))
+    launches = {k: fn.launches for k, fn in runner.KERNELS.items()}
+    calls = 7 * _dcn.PAIRS   # one warm call and six timed, each registering every pair
+    print(f"[28] run_single on {dev}: {res['shards']} shards, {res['pairs']} pairs, step "
+          f"{res['step_ms']:.2f} ms; launches K1 {launches['nn1']} ({launches['nn1'] / calls:.2f}"
+          f" per pair), K2 {launches['knn']}")
+    if not res["poses_finite"]:
+        raise AssertionError("run_single: non-finite poses")
+    if launches["nn1"] < calls or launches["knn"] < 2 * calls:
+        raise AssertionError(f"run_single: K1/K2 not launched on every pair: {launches}")
+    return {"run_single": res, "launches": launches}
+
+
+def phase_examples(dev, work: str):
+    """Phase 29: ``examples/synthetic_city`` at its defaults with every
+    export read back, and ``examples/sharded_streaming`` over 8 shards."""
+    import os
+
+    import numpy as np
+
+    from icpslam_tpu_torch.examples import synthetic_city
+    from icpslam_tpu_torch.pipeline import slam
+    from icpslam_tpu_torch.utils import checkpoint
+
+    d = os.path.join(work, "city")
+    out, _, secs, _ = _tool("29", "icpslam_tpu_torch.examples.synthetic_city",
+                            ["--out-dir", d], timeout=600)
+    s = _json_lines(out)[-1]
+    limit = max(CITY_ATE_FLOOR, 1.5 * JAX_CITY_ATE)
+    with open(os.path.join(d, "trajectory.txt")) as f:
+        tum = sum(1 for _ in f)
+    with open(os.path.join(d, "map.ply"), "rb") as f:
+        head = f.read(200).split(b"end_header")[0].decode()
+    ply = int(head.split("element vertex ")[1].split()[0])
+    with open(os.path.join(d, "graph.json")) as f:
+        graph = json.load(f)
+    state = checkpoint.load(os.path.join(d, "state.npz"),
+                            slam.init_state(synthetic_city.config(), device=dev))
+    with open(os.path.join(d, "viewer.html")) as f:
+        viewer = "const DATA = {" in f.read()
+    print(f"[29] synthetic_city, {s['scans']} scans in {secs:.1f} s: ATE {s['ate_m']:.4f} m "
+          f"(JAX on the CPU {JAX_CITY_ATE} m; limit {limit:.4f}), {s['keyframes']} keyframes, "
+          f"{s['loop_closures']} loop-closure edges, {s['optimizations']} solves; exports: TUM "
+          f"{tum} lines, PLY {ply} points, graph {len(graph['nodes'])} nodes, checkpoint "
+          f"{int(state.keyframes.count)} keyframes, viewer {viewer}; launches K1 "
+          f"{s['launches']['nn1']} K2 {s['launches']['knn']}")
+    if not s["loop_closures"] >= 1:
+        raise AssertionError("synthetic_city: no loop closure")
+    if not (tum == s["scans"] and ply > 0 and ply == s["map_points"]
+            and len(graph["nodes"]) == s["keyframes"] == int(state.keyframes.count) and viewer):
+        raise AssertionError("synthetic_city: an export does not read back")
+    if not s["ate_m"] <= limit:
+        raise AssertionError(f"synthetic_city: ATE {s['ate_m']} > {limit} m")
+    out2, _, secs2, _ = _tool("29", "icpslam_tpu_torch.examples.sharded_streaming",
+                              ["--poses", "16", "--devices", "8", "--device", str(dev)],
+                              timeout=300)
+    r = _json_lines(out2)[-1]
+    peak = r["peak_map_voxels_per_shard"]
+    print(f"[29] sharded_streaming, {r['scans']} scans over {r['devices']} shards in "
+          f"{secs2:.1f} s: ATE {r['ate_m']:.4f} m, {r['keyframes']} keyframes, voxels at the end "
+          f"{r['map_voxels_per_shard']} = {r['map_voxels_total']}, at the largest (step "
+          f"{r['peak_map_step']}) {peak} = {r['peak_map_voxels_total']}; launches K1 "
+          f"{r['launches']['nn1']} K2 {r['launches']['knn']}")
+    if not (np.isfinite(r["ate_m"]) and sum(r["map_voxels_per_shard"]) == r["map_voxels_total"]
+            and len(r["map_voxels_per_shard"]) == len(peak) == 8
+            and r["peak_map_voxels_total"] > 0 and sum(peak) == r["peak_map_voxels_total"]
+            and sum(1 for v in peak if v > 0) > 1):
+        raise AssertionError(f"sharded_streaming: {r}")
+    if not (r["launches"]["nn1"] > 0 and r["launches"]["knn"] > 0):
+        raise AssertionError(f"sharded_streaming: K1/K2 not launched: {r['launches']}")
+    return {"synthetic_city": s, "sharded_streaming": r}
+
+
+def _tool_launches(tool_runs: dict):
+    """(field, launches by kernel, path) of each tool phase for the
+    kernels line: the counts its processes reported."""
+    def from_summary(s):
+        return {k: round(s[f"{k}_launches_per_scan"] * s["scans"])
+                for k in ("nn1", "knn", "radius", "nn1_matmul")}
+
+    end, tree = tool_runs["endurance"], tool_runs["tree"]
+    sharded = tool_runs["sharded_endurance"]["sharded"]
+    full = tool_runs["probes"]["step_budget"][0]
+    budget_scans = 3 * 30   # three passes over the 30 timed scans
+    return [
+        ("endurance", from_summary(end["full_run"]),
+         f"tools.endurance run A, {end['scans']} scans (phase 24)"),
+        ("tree_run", from_summary(tree), f"tools.kitti_tree_run, {tree['scans']} scans (phase 25)"),
+        ("sharded_endurance", sharded["launches"],
+         f"tools.sharded_endurance over 8 shards, {sharded['scans']} scans (phase 26)"),
+        ("step_budget", {"nn1": round(full["k1_launches_per_scan"] * budget_scans),
+                         "knn": round(full["k2_launches_per_scan"] * budget_scans)},
+         "tools.probe_step_budget 'full', 3 x 30 scans (phase 27)"),
+        ("dcn_single", tool_runs["dcn"]["launches"],
+         "tools.elastic_dcn.run_single, 7 calls of 4 pairs (phase 28)"),
+        ("synthetic_city", tool_runs["examples"]["synthetic_city"]["launches"],
+         f"examples.synthetic_city, {tool_runs['examples']['synthetic_city']['scans']} scans "
+         "(phase 29)"),
+    ]
+
+
+def phase_tools(dev, rendered, physics: dict):
+    """Phases 24-29, one after another, in a git-ignored work directory of
+    the checkout, removed afterwards."""
+    import os
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="_chip_tools_", dir=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    try:
+        cache = _write_cache(rendered, work)
+        out = {"endurance": phase_endurance(dev, cache, physics, work),
+               "tree": phase_tree_run(dev, work, cache),
+               "sharded_endurance": phase_sharded_endurance(dev, work),
+               "probes": phase_probes(dev),
+               "dcn": phase_dcn_refusal(work)}
+        out["dcn"].update(phase_dcn_single(dev))
+        out["examples"] = phase_examples(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"    phases 24-29 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write all results to this JSON file")
@@ -2052,9 +2539,8 @@ def main(argv=None) -> int:
     k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
     mission, mission_launches = phase_mission(dev)
     from icpslam_tpu_torch.config import kitti_config
-    from icpslam_tpu_torch.io import runner
 
-    rendered = _render(runner.kitti_proxy_source, kitti_config(), LONG_SCANS)
+    rendered = _render_idealized(kitti_config(), LONG_SCANS)
     long_mission, long_launches, long_res = phase_long_mission(dev, rendered)
     solvers = phase_solvers(long_res.state)
     long_state = long_res.state
@@ -2064,13 +2550,14 @@ def main(argv=None) -> int:
     physics, physics_scans = phase_physics(dev)
     voxel, voxel_launches, voxel_records = phase_voxel(dev)
     tree, resume = phase_kitti_tree(dev, physics_scans, physics)
-    del physics_scans
     chunks = phase_chunk(dev, slice_records)
     sharded, sharded_records = phase_sharded(dev, voxel, voxel_launches, voxel_records)
     dist_solvers = phase_dist_solvers(dev, long_state, solvers, slice_summary)
     batched = phase_batched(dev, query_world, map_pts, fill)
     nccl = phase_nccl(dev, long_state, sharded_records)
     del long_state
+    tool_runs = phase_tools(dev, physics_scans, physics)
+    del physics_scans
     # the profile runs last: after a torch.profiler window every later
     # launch in the process cost more (phases 13-16 ran 1.1-1.9x slower
     # behind it than without it)
@@ -2134,6 +2621,9 @@ def main(argv=None) -> int:
         entry["sharded_slice_path"] = sharded_path
         entry["batched_step_launches"] = batched["launches"][key]
         entry["batched_step_path"] = batched_path
+        for field, launches, path in _tool_launches(tool_runs):
+            entry[f"{field}_launches"] = launches.get(key, 0)
+            entry[f"{field}_path"] = path
     if args.out:
         with open(args.out, "w") as f:
             json.dump({
@@ -2148,7 +2638,7 @@ def main(argv=None) -> int:
                 "physics": physics, "voxel": voxel, "voxel_launches": voxel_launches,
                 "kitti_tree": tree, "resume": resume, "chunks": chunks,
                 "sharded": sharded, "dist_solvers": dist_solvers, "batched": batched,
-                "nccl": nccl,
+                "nccl": nccl, "tools": tool_runs,
                 "device": torch.cuda.get_device_name(0), "card": card,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -151,6 +151,7 @@ class RunResult:
             "map_size": int(map_backend.total_size(self.state.map)),
             "map_overflow": int(map_backend.total_overflow(self.state.map)),
             "host_syncs_per_scan": float(np.mean(self.host_syncs)) if self.host_syncs else 0.0,
+            "poses_finite": bool(np.isfinite(r[:, :7]).all()),
         }
         if self.stamp_origin is not None:
             out["stamp_origin"] = self.stamp_origin
@@ -732,6 +733,10 @@ def main(argv=None) -> int:
     n = res.records.shape[0]
     log.info(f"processed {n} scans in {res.wall_time:.2f}s")
     gt_matches = gt is not None and gt[0].shape[0] == n and n > 1
+    if torch.device(args.device).type == "cuda":
+        # the run's peak device memory, CUDA-graph pools included (they
+        # are the caching allocator's)
+        extra["peak_memory_bytes"] = torch.cuda.max_memory_allocated(args.device)
     summary = {**res.summary(), **(evaluate(res, gt) if gt_matches else {}), **extra, **resumed,
                "loader": loader, "chunk": args.chunk, "device": args.device,
                "deskew_rounds": cfg.deskew_rounds, "deskew_mode": cfg.deskew_mode,

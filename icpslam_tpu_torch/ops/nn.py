@@ -67,6 +67,19 @@ def _sqdist(e: torch.Tensor) -> torch.Tensor:
     return e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1] + e[..., 2] * e[..., 2]
 
 
+def _block_sqdist(tc: torch.Tensor, qc: torch.Tensor) -> torch.Tensor:
+    """(n, m) ``_sqdist`` of every (query, target) pair, one coordinate at a
+    time: the same operations in the same order, without the (n, m, 3)
+    difference tensor."""
+    d = tc[None, :, 0] - qc[:, None, 0]
+    d2 = d * d
+    d = torch.sub(tc[None, :, 1], qc[:, None, 1], out=d)
+    d2 += d * d
+    d = torch.sub(tc[None, :, 2], qc[:, None, 2], out=d)
+    d2 += d * d
+    return d2
+
+
 def _row_block(m: int) -> int:
     return max(1, (1 << 24) // max(m, 1))
 
@@ -118,8 +131,7 @@ def nearest_neighbors_plain(query, target, target_mask, valid_len=None) -> NNRes
     parts = []
     step = _row_block(m)
     for s in range(0, n, step):
-        d2 = _sqdist(tc[None, :, :] - qc[s : s + step, None, :])
-        d2 = torch.where(target_mask[None, :], d2, _INF)
+        d2 = _block_sqdist(tc, qc[s : s + step]).masked_fill_(~target_mask[None, :], _INF)
         parts.append(d2.argmin(1))
     idx = torch.cat(parts)
     d2 = _sqdist(tc[idx] - qc)
@@ -231,8 +243,7 @@ def knn_plain(query, target, target_mask, k: int):
     idx_parts, d2_parts = [], []
     step = _row_block(m)
     for s in range(0, n, step):
-        d2 = _sqdist(tc[None, :, :] - qc[s : s + step, None, :])
-        d2 = torch.where(target_mask[None, :], d2, _INF)
+        d2 = _block_sqdist(tc, qc[s : s + step]).masked_fill_(~target_mask[None, :], _INF)
         if m < k:
             d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - m), _INF)], 1)
         vals, idx = _smallest_k(d2, k)

@@ -248,3 +248,43 @@ def test_knn_self_query_and_fewer_live_than_k():
     for i in (3, 100, 400):
         assert idx[i, 0] == i and d2[i, 0] == 0.0
 
+
+
+def _old_form_nn(q, t, mask):
+    """The plain versions' blocked d² as it was built before
+    ``_block_sqdist``: one (n, m, 3) difference tensor, then ``torch.where``
+    over the mask; the argmin and the k smallest (d², index) keys of it."""
+    center = q.mean(0)
+    qc, tc = q - center, t - center
+    d2 = tnn._sqdist(tc[None, :, :] - qc[:, None, :])
+    return torch.where(mask[None, :], d2, tnn._INF), qc, tc
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_block_sqdist_bit_equal_to_the_difference_tensor_form(k):
+    # a coarse grid gives many exact d² ties; some targets are duplicated
+    # and some masked, so the argmin and the (d², index) keys must break
+    # the ties in the same way as before
+    rng = np.random.RandomState(22)
+    t = (rng.randint(-6, 7, (700, 3)) * 0.25).astype(np.float32)
+    t[600:] = t[:100]
+    q = np.concatenate([t[rng.randint(0, 700, 200)],
+                        rng.randn(200, 3).astype(np.float32) * 2])
+    mask = rng.rand(700) > 0.2
+    qt, tt, mt = torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(mask)
+    old, qc, tc = _old_form_nn(qt, tt, mt)
+    new = tnn._block_sqdist(tc, qc).masked_fill_(~mt[None, :], tnn._INF)
+    assert torch.equal(new.view(torch.int32), old.view(torch.int32))
+    if k == 1:
+        res = tnn.nearest_neighbors_plain(qt, tt, mt)
+        idx = old.argmin(1)
+        assert torch.equal(res.idx, idx)
+        assert torch.equal(res.dist2.view(torch.int32),
+                           tnn._sqdist(tc[idx] - qc).view(torch.int32))
+    else:
+        idx, d2 = tnn.knn_plain(qt, tt, mt, k)
+        vals, oidx = tnn._smallest_k(old, k)
+        assert torch.equal(idx, oidx)
+        assert torch.equal(d2.view(torch.int32), vals.view(torch.int32))
+    ties = (old == old.min(1, keepdim=True).values).sum(1)
+    assert int((ties > 1).sum()) > 50   # the case holds many exact ties

@@ -387,3 +387,20 @@ def test_runner_scan_cache(tmp_path, capsys):
         tconfig.kitti_config(max_raw_points=8192), 3, 10.0)[0]]
     for i, w in enumerate(want):
         np.testing.assert_array_equal(np.load(cache)[f"s{i}"], w)
+
+
+@pytest.mark.parametrize("tool", ["endurance", "kitti_tree_run", "sharded_endurance",
+                                  "scaling_dcn", "elastic_dcn"])
+def test_tool_defaults_write_no_file_that_predates_the_port(tool):
+    """A tool's default ``--out`` (and ``--cache``) lies outside the JAX
+    package's ``artifacts/`` and every other path of the repo but the
+    port's own ``icpslam_tpu_torch/artifacts/``."""
+    import importlib
+
+    ap = importlib.import_module(f"icpslam_tpu_torch.tools.{tool}")._parser()
+    out = Path(ap.get_default("out")).resolve()
+    assert out.parent == PORT / "artifacts", out
+    assert not out.is_relative_to(REPO / "artifacts")
+    cache = ap.get_default("cache")
+    if cache is not None:
+        assert not Path(cache).resolve().is_relative_to(REPO), cache
