@@ -34,7 +34,8 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    and M, and ``valid_len`` ending mid-tile;
 8. the radius mission: 500 scans of the KITTI proxy under
    ``kitti_config()`` with radius covariances in both ICP stages
-   (``radius_config()``) through ``runner.run_slam`` — the run that
+   (``radius_config()``), rendered beforehand in RENDER_WORKERS processes
+   as phase 9's, through ``runner.run_slam`` — the run that
    reaches loop closure and the incremental window solve at full width;
 9. the long mission: 1,800 scans of the KITTI proxy under plain
    ``kitti_config()`` (k-NN covariances through K2) through
@@ -64,8 +65,7 @@ Phases, in order; a failed phase raises and the exit code is non-zero:
    scans that launched or folded, beside phase 9's (all scans and its
    optimize scans); host syncs per scan and peak memory, graph pools
    included;
-12. the profile: ``utils/profiling.trace`` over 40 pre-rendered scans of
-   the phase 5 slice, inline and then deferred, each after one unprofiled
+12. the profile: ``utils/profiling.trace`` over phase 5's 40 scans, inline and then deferred, each after one unprofiled
    warm run, with ``torch.cuda.set_sync_debug_mode("warn")`` on; the
    traces go to ``_traces/`` (git-ignored). Device-busy share, kernels
    and host launch calls per scan, the five costliest device ops, and the
@@ -153,7 +153,11 @@ Phases 24-29 run the port's tools (``icpslam_tpu_torch/tools/``,
 a subprocess with a time limit, in a git-ignored work directory of the
 checkout (``_chip_tools_*/``, removed afterwards), and read their
 artifacts back; a tool counts the kernels' launches in its own
-processes and reports them. They run one after another:
+processes and reports them. Phases 24-26 run on a thread of their own
+(subprocesses only: nothing of the script's CUDA state or launch
+counts): 26 beside phases 13-15, then 24 and 25, on phase 13's scans,
+beside phases 16-23; 27-29 run one after another once they are done,
+with nothing beside them:
 
 24. ``tools.endurance --scans ENDURANCE_SCANS`` on phase 13's first scans,
    written as the runner's scan cache (tag 1): six runner processes (A,
@@ -186,9 +190,23 @@ processes and reports them. They run one after another:
    shards' sizes summing to the mesh's total; the largest is not empty
    and spread over more than one shard.
 
-Phase 12 runs after phase 29, last. Each path (phases 4, 5, 8, 9, 11,
-13-20, 23 and 28's ``run_single``) is driven with every launch count set
-to 0 just before it and read just after. Kernel times (``ms``) are the device
+30. the odometry front end as an entry point of its own, on phase 5's 40
+   scans (rendered once, after phase 5, for phases 30 and 12) at
+   ``kitti_config()``'s full width: ``odometry.run_scans`` in chunks of
+   ODOM_CHUNK (JAX's ``bench_odometry``) and ``odometry_step(state, scan,
+   cfg)`` one scan at a time, JAX's contract: every output and the final
+   state bit-equal, K1 and K2 launched in every registered scan, ≥ 90%
+   accepted, finite poses; each drive also runs first, untimed, under
+   ``set_sync_debug_mode('warn')`` (equal outputs) for its host syncs;
+   ms/scan, syncs and K1/K2 launches per scan and the odometry-only ATE
+   (no limit); ``drain_accumulator`` within 1e-4 m of
+   ``se3.relative(initial, final)`` and identity after a second drain;
+   ``point_map.exact_nn`` equal to ``exact_nn_with_covs``'s result (the
+   winning points, d² and found, bit for bit) on phase 2's map.
+
+Phase 12 runs after phase 30, last. Each path (phases 4, 5, 8, 9, 11,
+13-20, 23, 28's ``run_single`` and both drives of 30) is driven with every
+launch count set to 0 just before it and read just after. Kernel times (``ms``) are the device
 time per wrapper call, calls enqueued back to back behind a spin kernel
 (``_device_ms``); plain versions are timed by CUDA events around single
 calls (``_timed``). ``bound_ms`` is the least time the card could take
@@ -199,14 +217,25 @@ tile skip swept); ``bound_all_pairs_ms`` counts all of them, the bound of
 the earlier records. The line before the last is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``. The script needs no JAX.
+
+The script stops every process it starts, whether it passes or fails: it
+makes itself the subreaper of its descendants at its start, so that an
+orphan of a tool's process is adopted by it, and when ``main`` returns or
+raises it closes multiprocessing's resource tracker (started by phase 9's
+render pool) and kills and waits for every descendant still alive, naming
+each on stderr. SIGTERM (a time limit's signal) ends it the same way.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # K3 against its plain version: mean and covariance (and the tapered
@@ -241,7 +270,6 @@ SOLVER_DIST = 5e-2
 # order; the scatter-adds' atomics sum in another order
 CAPTURED_DIST = 1e-4
 CAPTURED_COST = 1e-4
-PROFILE_SCANS = 40
 TRACE_DIR = "_traces"
 # the physics proxy (phases 13-15): the JAX package's recorded ATE over
 # 500 poses is 0.3288 m with the coupled free-twist de-skew, 0.1769 m
@@ -284,6 +312,9 @@ CHUNKS = (8, 6)
 # sharded endurance drive (3 laps, as JAX's tool runs max(3, scans / 120))
 ENDURANCE_SCANS = 30
 SHARDED_SCANS = 240
+# phase 30: the odometry front end's chunk (JAX's bench_odometry drives
+# run_scans in chunks of 10)
+ODOM_CHUNK = 10
 # processes that render the long mission's scans (each scan's render
 # depends on its index and pose alone)
 RENDER_WORKERS = 8
@@ -926,7 +957,9 @@ def phase_mission(dev):
     from icpslam_tpu_torch.io import runner
 
     n = MISSION_SCANS
-    s, launches, peak, res = _drive(runner.kitti_proxy_source, radius_config(), n, dev)
+    rendered = _render_idealized(radius_config(), n)
+    s, launches, peak, res = _drive(runner.kitti_proxy_source, radius_config(), n, dev,
+                                    rendered=rendered)
     per = {k: v / n for k, v in launches.items()}
     print(f"[8] radius mission, {n} scans: ATE {s['ate_m']:.4f} m, accepted {s['accepted']}/{n}, "
           f"{s['keyframes']} keyframes, {s['loop_closures']} loop-closure edges, "
@@ -1346,9 +1379,9 @@ def _sync_sources(records, repo: str):
     return counted, stream, rest
 
 
-def phase_profile(dev):
-    """Phase 12: a torch.profiler trace and the host syncs of 40 scans of
-    the slice, inline and deferred."""
+def phase_profile(dev, rendered):
+    """Phase 12: a torch.profiler trace and the host syncs of the slice's
+    40 scans (``rendered``), inline and deferred."""
     import dataclasses
     import os
     import warnings
@@ -1363,8 +1396,7 @@ def phase_profile(dev):
     from icpslam_tpu_torch.utils.sync import to_host
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    n = PROFILE_SCANS
-    rendered = _render(runner.kitti_proxy_source, kitti_config(), n)
+    n = len(rendered[0])
     gt = rendered[1]
     init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
     out = {}
@@ -1434,6 +1466,172 @@ def phase_profile(dev):
             if r["solves"] < 1:
                 raise AssertionError(f"no graph solve in the {mode} profile")
     return out
+
+
+def _odometry_drive(scans, init, cfg, dev, chunk: int = 0, count_syncs: bool = False):
+    """Phase 30: the odometry front end alone over the uploaded ``scans``
+    (a stacked cloud on the card): ``odometry.run_scans`` in chunks of
+    ``chunk`` scans, or ``odometry_step(state, scan, cfg)`` one scan at a
+    time (``chunk`` 0). Every launch count is set to 0 just before and read
+    just after. Returns the final state, the stacked outputs, ms per scan
+    (a chunk's time over its scans), the counted host reads, the implicit
+    syncs by source (``count_syncs``: under ``set_sync_debug_mode('warn')``)
+    and the launches, with K1's and K2's per scan in the one-by-one drive."""
+    import os
+    import warnings
+
+    import torch
+
+    from icpslam_tpu_torch.cloud import pointcloud as pc
+    from icpslam_tpu_torch.io import runner
+    from icpslam_tpu_torch.pipeline import odometry
+    from icpslam_tpu_torch.utils import tree
+    from icpslam_tpu_torch.utils.sync import to_host
+
+    n = scans.points.shape[0]
+    state = odometry.init_state(cfg, initial_pose=init, device=dev)
+    for fn in runner.KERNELS.values():
+        fn.launches = 0
+    nn1, knn = runner.KERNELS["nn1"], runner.KERNELS["knn"]
+    reads0 = to_host.count
+    ms, outs, per_scan = [], [], []
+    torch.cuda.synchronize()
+    if count_syncs:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as recs:
+            warnings.simplefilter("always")
+            for a in range(0, n, chunk or 1):
+                b = min(a + (chunk or 1), n)
+                k0 = (nn1.launches, knn.launches)
+                t0 = time.perf_counter()
+                if chunk:
+                    state, out = odometry.run_scans(
+                        state, pc.PointCloud(scans.points[a:b], scans.mask[a:b]), cfg)
+                else:
+                    state, out = odometry.odometry_step(
+                        state, pc.PointCloud(scans.points[a], scans.mask[a]), cfg)
+                torch.cuda.synchronize()
+                ms += [1e3 * (time.perf_counter() - t0) / (b - a)] * (b - a)
+                outs.append(out)
+                per_scan.append((nn1.launches - k0[0], knn.launches - k0[1]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reads = to_host.count - reads0
+    stacked = tree.cat(outs) if chunk else tree.stack(outs)
+    syncs = [r for r in recs if "synchronizing CUDA operation" in str(r.message)]
+    counted, stream, rest = _sync_sources(syncs, os.path.dirname(os.path.abspath(__file__)))
+    launches = {name: fn.launches for name, fn in runner.KERNELS.items()}
+    return {"state": state, "out": stacked, "ms": ms, "reads": reads, "syncs": len(syncs),
+            "counted_syncs": counted, "stream_syncs": stream, "implicit": sum(rest.values()),
+            "implicit_sources": dict(rest.most_common(5)), "launches": launches,
+            "per_scan": per_scan}
+
+
+def phase_odometry(dev, rendered, map_pts, fill, query_world):
+    """Phase 30: the odometry front end as an entry point of its own on
+    phase 5's scans (``rendered``), at ``kitti_config()``'s full width:
+    ``odometry.run_scans`` in chunks of ODOM_CHUNK (as JAX's
+    ``bench_odometry`` drives it) and ``odometry_step(state, scan, cfg)``
+    one scan at a time, bit-equal; K1 and K2 in every registered scan;
+    ``drain_accumulator``; ``point_map.exact_nn`` against
+    ``exact_nn_with_covs`` on phase 2's map."""
+    import numpy as np
+    import torch
+
+    from icpslam_tpu_torch.cloud import pointcloud as pc
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.eval import metrics
+    from icpslam_tpu_torch.geometry import se3
+    from icpslam_tpu_torch.geometry.se3 import Pose
+    from icpslam_tpu_torch.mapping import point_map
+    from icpslam_tpu_torch.ops.covariance import eye6
+    from icpslam_tpu_torch.pipeline import odometry
+    from icpslam_tpu_torch.utils.tree import leaves
+
+    cfg = kitti_config()
+    stream, gt = rendered
+    n = len(stream)
+    scans = pc.PointCloud(torch.from_numpy(np.stack([p for (p, _), _ in stream])).to(dev),
+                          torch.from_numpy(np.stack([m for (_, m), _ in stream])).to(dev))
+    init = Pose(t=torch.from_numpy(gt[0][0]).to(dev), q=torch.from_numpy(gt[1][0]).to(dev))
+    drives = {}
+    # the drives that count syncs go first: they also warm the timed ones
+    for name, chunk in (("chunks", ODOM_CHUNK), ("one_by_one", 0)):
+        drives[name + "_syncs"] = _odometry_drive(scans, init, cfg, dev, chunk=chunk,
+                                                  count_syncs=True)
+    for name, chunk in (("chunks", ODOM_CHUNK), ("one_by_one", 0)):
+        drives[name] = _odometry_drive(scans, init, cfg, dev, chunk=chunk)
+    a, b = drives["chunks"], drives["one_by_one"]
+    equal = all(torch.equal(x, y) for x, y in zip(leaves(a["out"]), leaves(b["out"])))
+    equal &= all(torch.equal(x, y) for x, y in zip(leaves(a["state"]), leaves(b["state"])))
+    for name in ("chunks", "one_by_one"):
+        d = drives[name + "_syncs"]
+        equal &= all(torch.equal(x, y) for x, y in zip(leaves(d["out"]), leaves(b["out"])))
+    out = b["out"]
+    processed = out.processed.cpu().numpy()
+    accepted = out.accepted.cpu().numpy()
+    t, q = out.pose.t.cpu(), out.pose.q.cpu()
+    finite = bool(torch.isfinite(t).all() and torch.isfinite(q).all())
+    missing = [i for i, (k1, k2) in enumerate(b["per_scan"])
+               if processed[i] and not (k1 > 0 and k2 > 0)]
+    ate, _ = metrics.ate(Pose(t, q), Pose(torch.from_numpy(gt[0][:n]), torch.from_numpy(gt[1][:n])),
+                         align=True)
+    accum, drained = odometry.drain_accumulator(b["state"])
+    expect = se3.relative(init, b["state"].pose)
+    drain_err = float((accum.t - expect.t).norm())
+    accum2, _ = odometry.drain_accumulator(drained)
+    second = float(accum2.t.norm()) + float((accum2.q - se3.identity(device=dev).q).abs().max())
+    # the map query: exact_nn is exact_nn_with_covs without the gather
+    pmap = point_map.PointMap(points=map_pts, covs=eye6(map_pts.shape[0], device=dev),
+                              size=torch.tensor(fill, dtype=torch.int32, device=dev),
+                              overflow=torch.tensor(0, dtype=torch.int32, device=dev))
+    nn_a = point_map.exact_nn(pmap, query_world.points, query_world.mask)
+    nn_b, _ = point_map.exact_nn_with_covs(pmap, query_world.points, query_world.mask)
+    nn_equal = all(torch.equal(x, y) for x, y in zip(nn_a, nn_b))
+    registered = int(processed.sum())
+    res = {"scans": n, "chunk": ODOM_CHUNK, "bit_equal": bool(equal),
+           "accepted": int(accepted.sum()), "registered": registered, "ate_m": float(ate),
+           "drain_err_m": drain_err, "second_drain": second, "map_nn_equal": bool(nn_equal),
+           "map_queries": int(query_world.mask.sum()), "map_fill": fill}
+    for name in ("chunks", "one_by_one"):
+        d, s = drives[name], drives[name + "_syncs"]
+        res[name] = {"ms": _ms_stats(d["ms"]), "to_host_per_scan": d["reads"] / n,
+                     "syncs_per_scan": s["syncs"] / n, "counted_syncs_per_scan": s["counted_syncs"] / n,
+                     "stream_syncs_per_scan": s["stream_syncs"] / n,
+                     "implicit_syncs_per_scan": s["implicit"] / n,
+                     "implicit_sources": s["implicit_sources"], "launches": d["launches"]}
+    launches = b["launches"]
+    print(f"[30] odometry front end, {n} scans of phase 5 at kitti_config width: run_scans in "
+          f"chunks of {ODOM_CHUNK} and odometry_step one by one bit-equal (outputs and state): "
+          f"{equal}; accepted {res['accepted']}/{n}, registered {registered}, poses finite "
+          f"{finite}; odometry-only ATE {ate:.4f} m (no limit)")
+    for name in ("chunks", "one_by_one"):
+        r = res[name]
+        print(f"[30] {name}: ms/scan {_fmt(r['ms'])}; host syncs/scan "
+              f"{r['syncs_per_scan']:.2f} (set_sync_debug_mode) = {r['counted_syncs_per_scan']:.2f} "
+              f"counted to_host + {r['stream_syncs_per_scan']:.2f} stream + "
+              f"{r['implicit_syncs_per_scan']:.2f} implicit {r['implicit_sources']}; to_host "
+              f"reads/scan {r['to_host_per_scan']:.2f}; K1 {r['launches']['nn1'] / n:.2f} and K2 "
+              f"{r['launches']['knn'] / n:.2f} launches/scan")
+    print(f"[30] drain_accumulator against se3.relative(initial, final): {drain_err:.2e} m; "
+          f"second drain off identity by {second:.2e}; point_map.exact_nn equals "
+          f"exact_nn_with_covs (points, d², found) on phase 2's map ({res['map_queries']} queries, "
+          f"fill {fill}): {nn_equal}")
+    if not equal:
+        raise AssertionError("run_scans differs from odometry_step one by one")
+    if missing:
+        raise AssertionError(f"registered scans without K1 and K2 launches: {missing}")
+    if a["launches"] != launches:
+        raise AssertionError(f"the two drives launched different kernels: {a['launches']} "
+                             f"against {launches}")
+    if res["accepted"] < 0.9 * n or not finite:
+        raise AssertionError(f"odometry: {res['accepted']}/{n} accepted, finite {finite}")
+    if not (drain_err <= 1e-4 and second == 0.0):
+        raise AssertionError(f"drain_accumulator: {drain_err} m, second drain {second}")
+    if not nn_equal:
+        raise AssertionError("point_map.exact_nn differs from exact_nn_with_covs")
+    return res
 
 
 def _physics_drive(dev, tag: str, rendered, cfg, prefetch_depth=3):
@@ -2142,9 +2340,9 @@ CITY_ATE_FLOOR = 0.10
 
 def _tool(tag: str, module: str, args, timeout: float, check: bool = True):
     """Run ``python -m module *args`` from the checkout's root in a
-    session of its own, which is killed whole when it ends or passes
-    ``timeout``: (stdout, stderr, seconds, exit code); with ``check`` a
-    non-zero exit raises."""
+    process group of its own (in the script's session), which is killed
+    whole when it ends or passes ``timeout``: (stdout, stderr, seconds, exit
+    code); with ``check`` a non-zero exit raises."""
     import os
     import signal
 
@@ -2152,7 +2350,7 @@ def _tool(tag: str, module: str, args, timeout: float, check: bool = True):
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=here,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+                            process_group=0)
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
     finally:
@@ -2490,28 +2688,36 @@ def _tool_launches(tool_runs: dict):
     ]
 
 
-def phase_tools(dev, rendered, physics: dict):
-    """Phases 24-29, one after another, in a git-ignored work directory of
-    the checkout, removed afterwards."""
-    import os
-    import shutil
-    import tempfile
-
-    work = tempfile.mkdtemp(prefix="_chip_tools_", dir=os.path.dirname(os.path.abspath(__file__)))
+def phase_tools_beside(dev, rendered, physics: dict, work: str):
+    """Phases 24-25, one after another, on the thread of phase 26, beside
+    phases 16-23: each runs the tool in subprocesses and reads its artifact
+    back, and touches neither this process's CUDA state nor its launch
+    counts."""
     t0 = time.perf_counter()
-    try:
-        cache = _write_cache(rendered, work)
-        out = {"endurance": phase_endurance(dev, cache, physics, work),
-               "tree": phase_tree_run(dev, work, cache),
-               "sharded_endurance": phase_sharded_endurance(dev, work),
-               "probes": phase_probes(dev),
-               "dcn": phase_dcn_refusal(work)}
-        out["dcn"].update(phase_dcn_single(dev))
-        out["examples"] = phase_examples(dev, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    cache = _write_cache(rendered, work)
+    out = {"endurance": phase_endurance(dev, cache, physics, work),
+           "tree": phase_tree_run(dev, work, cache)}
+    out["beside_seconds"] = time.perf_counter() - t0
+    print(f"    phases 24-25 in {out['beside_seconds']:.1f} s, beside phases 16-23")
+    return out
+
+
+def phase_tools(dev, sharded_endurance, beside, work: str):
+    """Phases 27-29, one after another, once phases 24-26 (the futures
+    ``sharded_endurance`` of phase 26 and ``beside`` of
+    ``phase_tools_beside``) are done: phase 27 times steps and phase 28 a
+    refusal, so nothing runs beside them."""
+    t0 = time.perf_counter()
+    out = beside.result()
+    out["sharded_endurance"] = sharded_endurance.result()
+    waited = time.perf_counter() - t0
+    out["probes"] = phase_probes(dev)
+    out["dcn"] = phase_dcn_refusal(work)
+    out["dcn"].update(phase_dcn_single(dev))
+    out["examples"] = phase_examples(dev, work)
     out["seconds"] = time.perf_counter() - t0
-    print(f"    phases 24-29 in {out['seconds']:.1f} s")
+    print(f"    phases 27-29 in {out['seconds'] - waited:.1f} s, after {waited:.1f} s waiting "
+          "for phases 24-26")
     return out
 
 
@@ -2535,11 +2741,14 @@ def main(argv=None) -> int:
     k2_err, k2 = phase_k2(clouds, dev)
     sentinel = phase_sentinel(dev)
     slice_summary, slice_launches, slice_records = phase_slice(dev)
+    from icpslam_tpu_torch.config import kitti_config
+    from icpslam_tpu_torch.io import runner
+
+    # phase 5's scans, rendered once for phases 30 and 12
+    slice_scans = _render(runner.kitti_proxy_source, kitti_config(), SLICE_SCANS)
     k3_err, k3 = phase_k3(clouds, dev)
     k4_err, k4_times = phase_k4(clouds, query_world, map_pts, fill, dev)
     mission, mission_launches = phase_mission(dev)
-    from icpslam_tpu_torch.config import kitti_config
-
     rendered = _render_idealized(kitti_config(), LONG_SCANS)
     long_mission, long_launches, long_res = phase_long_mission(dev, rendered)
     solvers = phase_solvers(long_res.state)
@@ -2547,21 +2756,35 @@ def main(argv=None) -> int:
     del long_res
     deferred_mission, deferred_launches = phase_deferred(dev, rendered, long_mission)
     del rendered
-    physics, physics_scans = phase_physics(dev)
-    voxel, voxel_launches, voxel_records = phase_voxel(dev)
-    tree, resume = phase_kitti_tree(dev, physics_scans, physics)
-    chunks = phase_chunk(dev, slice_records)
-    sharded, sharded_records = phase_sharded(dev, voxel, voxel_launches, voxel_records)
-    dist_solvers = phase_dist_solvers(dev, long_state, solvers, slice_summary)
-    batched = phase_batched(dev, query_world, map_pts, fill)
-    nccl = phase_nccl(dev, long_state, sharded_records)
-    del long_state
-    tool_runs = phase_tools(dev, physics_scans, physics)
+    # phases 24-29 work in a git-ignored directory of the checkout, removed
+    # afterwards; 24-26 run the tools in subprocesses on a thread of their
+    # own (the card and the host's cores have room for both): 26 beside
+    # phases 13-15, then 24-25 on phase 13's scans beside phases 16-23;
+    # 27-29 run after them
+    work = tempfile.mkdtemp(prefix="_chip_tools_", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        beside = concurrent.futures.ThreadPoolExecutor(1)
+        tool_26 = beside.submit(phase_sharded_endurance, dev, work)
+        physics, physics_scans = phase_physics(dev)
+        tools_24_25 = beside.submit(phase_tools_beside, dev, physics_scans, physics, work)
+        beside.shutdown(wait=False)
+        voxel, voxel_launches, voxel_records = phase_voxel(dev)
+        tree, resume = phase_kitti_tree(dev, physics_scans, physics)
+        chunks = phase_chunk(dev, slice_records)
+        sharded, sharded_records = phase_sharded(dev, voxel, voxel_launches, voxel_records)
+        dist_solvers = phase_dist_solvers(dev, long_state, solvers, slice_summary)
+        batched = phase_batched(dev, query_world, map_pts, fill)
+        nccl = phase_nccl(dev, long_state, sharded_records)
+        del long_state
+        tool_runs = phase_tools(dev, tool_26, tools_24_25, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     del physics_scans
+    odom = phase_odometry(dev, slice_scans, map_pts, fill, query_world)
     # the profile runs last: after a torch.profiler window every later
     # launch in the process cost more (phases 13-16 ran 1.1-1.9x slower
     # behind it than without it)
-    profile = phase_profile(dev)
+    profile = phase_profile(dev, slice_scans)
     print(f"    all phases in {time.perf_counter() - t_start:.1f} s")
 
     slice_path = f"kitti_config slice, {slice_summary['scans']} scans (phase 5)"
@@ -2621,6 +2844,10 @@ def main(argv=None) -> int:
         entry["sharded_slice_path"] = sharded_path
         entry["batched_step_launches"] = batched["launches"][key]
         entry["batched_step_path"] = batched_path
+        entry["odometry_front_end_launches"] = odom["one_by_one"]["launches"][key]
+        entry["odometry_front_end_path"] = (
+            f"odometry front end alone, odometry_step one by one, {odom['scans']} scans "
+            "(phase 30)")
         for field, launches, path in _tool_launches(tool_runs):
             entry[f"{field}_launches"] = launches.get(key, 0)
             entry[f"{field}_path"] = path
@@ -2638,7 +2865,7 @@ def main(argv=None) -> int:
                 "physics": physics, "voxel": voxel, "voxel_launches": voxel_launches,
                 "kitti_tree": tree, "resume": resume, "chunks": chunks,
                 "sharded": sharded, "dist_solvers": dist_solvers, "batched": batched,
-                "nccl": nccl, "tools": tool_runs,
+                "nccl": nccl, "tools": tool_runs, "odometry": odom,
                 "device": torch.cuda.get_device_name(0), "card": card,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))
@@ -2649,5 +2876,107 @@ def main(argv=None) -> int:
     return 0
 
 
+def _adopt_orphans() -> None:
+    """Make this process the subreaper of its descendants (Linux's
+    ``PR_SET_CHILD_SUBREAPER``): an orphan of a process it started becomes
+    its child, where ``_stop_children`` finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (AttributeError, OSError):
+        pass
+
+
+def _descendants(root: int) -> dict:
+    """``{pid: command line}`` of every live descendant of ``root``, read
+    from ``/proc``."""
+    import os
+
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if fields[0] != "Z":
+                parent[int(entry)] = int(fields[1])
+    found, todo = {}, [root]
+    while todo:
+        ppid = todo.pop()
+        kids = [pid for pid, pp in parent.items() if pp == ppid]
+        for pid in kids:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    found[pid] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            except OSError:
+                found[pid] = "?"
+        todo += kids
+    return found
+
+
+def _stop_children() -> dict:
+    """Stop every process this one started that still runs: close
+    multiprocessing's resource tracker as the interpreter would at exit,
+    then kill every other descendant and wait for it (and reap any child
+    already done). Returns ``{pid: command line}`` of those killed."""
+    import gc
+    import os
+    import signal
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    killed = {}
+    while True:
+        _reap()
+        left = _descendants(os.getpid())
+        if not left:
+            return killed
+        for pid, cmd in left.items():
+            if pid not in killed:
+                print(f"chip_smoke: stopping process {pid} left running: {cmd}", file=sys.stderr)
+                killed[pid] = cmd
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.05)
+
+
+def _reap() -> None:
+    """Wait for every child that has ended, without blocking."""
+    import os
+
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                return
+        except ChildProcessError:
+            return
+
+
+def _terminated(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def _run(argv=None) -> int:
+    """``main`` with every process it starts stopped when it ends, also
+    when a time limit ends it by SIGTERM."""
+    import signal
+
+    _adopt_orphans()
+    signal.signal(signal.SIGTERM, _terminated)
+    try:
+        return main(argv)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        _stop_children()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_run())

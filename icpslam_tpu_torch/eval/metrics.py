@@ -20,13 +20,20 @@ def _cpu(p: Pose) -> Pose:
     return Pose(t=p.t.detach().cpu().float(), q=p.q.detach().cpu().float())
 
 
+def align_trajectories(est: Pose, gt: Pose) -> Pose:
+    """Best SE(3) ``T`` aligning the estimate's positions to ground truth
+    (``gt ≈ T ∘ est``), by weighted Kabsch on the position sequences."""
+    n = est.t.shape[0]
+    T, _ = weighted_rigid_align(est.t, gt.t, torch.ones(n, dtype=est.t.dtype, device=est.t.device))
+    return T
+
+
 def ate(est: Pose, gt: Pose, align: bool = True) -> Tuple[float, np.ndarray]:
     """Absolute trajectory error after SE(3) alignment: (rmse, per-frame)."""
     est, gt = _cpu(est), _cpu(gt)
     est_t = est.t
     if align:
-        T, _ = weighted_rigid_align(est.t, gt.t, torch.ones(est.t.shape[0]))
-        est_t = se3.transform_points(T, est.t)
+        est_t = se3.transform_points(align_trajectories(est, gt), est.t)
     err = np.linalg.norm(est_t.numpy() - gt.t.numpy(), axis=-1)
     return float(np.sqrt(np.mean(err**2))), err
 

@@ -29,6 +29,11 @@ def identity(shape=(), dtype=torch.float32, device=None) -> Pose:
     )
 
 
+def from_matrix(m: torch.Tensor) -> Pose:
+    """Pose from a homogeneous (..., 4, 4) (or (..., 3, 4)) matrix."""
+    return Pose(t=m[..., :3, 3], q=quat.from_matrix(m[..., :3, :3]))
+
+
 def compose(a: Pose, b: Pose) -> Pose:
     return Pose(t=a.t + quat.rotate(a.q, b.t), q=quat.multiply(a.q, b.q))
 
@@ -197,6 +202,11 @@ def adjoint(p: Pose) -> torch.Tensor:
     top = torch.cat([R, skew(p.t) @ R], dim=-1)
     bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def stack(poses) -> Pose:
+    """Stack a list of ``Pose`` into a batched ``Pose``."""
+    return Pose(t=torch.stack([p.t for p in poses]), q=torch.stack([p.q for p in poses]))
 
 
 def index(p: Pose, i) -> Pose:

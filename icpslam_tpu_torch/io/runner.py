@@ -727,7 +727,11 @@ def main(argv=None) -> int:
     extra = {}
     if backend is not None:
         res.state = backend.flush(res.state)
-        extra = dict(deferred_launched=backend.num_launched, deferred_folded=backend.num_folded)
+        # calls from each launch to its fold: how long the device took to
+        # report the solve done, in scans
+        lags = [f - l for l, f in zip(backend.launched_at, backend.folded_at)]
+        extra = dict(deferred_launched=backend.num_launched, deferred_folded=backend.num_folded,
+                     deferred_fold_lag_calls=sum(lags) / len(lags) if lags else None)
         log.info(f"deferred back end: {backend.num_launched} solves launched, "
                  f"{backend.num_folded} folded")
     n = res.records.shape[0]

@@ -93,6 +93,18 @@ def insert_reusing_nn(
     return insert(map_, cloud, resolution, mesh=mesh)
 
 
+def query_nn(map_: MapState, points, mask, config, mesh: Optional[object] = None
+             ) -> vm.MapNNResult:
+    """The map's NN of each query: exact (K1) on the point map, approximate
+    over the neighbouring voxels on the voxel and sharded maps."""
+    if isinstance(map_, pm.PointMap):
+        return pm.exact_nn(map_, points, mask)
+    if is_sharded(map_):
+        return sm.approx_nn(map_, points, mask, config.map_resolution, _need_mesh(mesh),
+                            radius=config.map_nn_radius)
+    return vm.approx_nn(map_, points, mask, config.map_resolution, radius=config.map_nn_radius)
+
+
 def query_nn_with_covs(map_: MapState, points, mask, config, prune_beyond=None,
                        mesh: Optional[object] = None):
     """``(MapNNResult, covs)``: the stored map-frame covariances (6, Q) of
@@ -100,9 +112,4 @@ def query_nn_with_covs(map_: MapState, points, mask, config, prune_beyond=None,
     them from the NN cloud)."""
     if isinstance(map_, pm.PointMap):
         return pm.exact_nn_with_covs(map_, points, mask, prune_beyond=prune_beyond)
-    if is_sharded(map_):
-        nn = sm.approx_nn(map_, points, mask, config.map_resolution, _need_mesh(mesh),
-                          radius=config.map_nn_radius)
-    else:
-        nn = vm.approx_nn(map_, points, mask, config.map_resolution, radius=config.map_nn_radius)
-    return nn, None
+    return query_nn(map_, points, mask, config, mesh=mesh), None

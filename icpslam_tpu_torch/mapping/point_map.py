@@ -120,12 +120,26 @@ def insert_with_nn(
     return _append(pmap, cloud.points, new, covs, eviction=eviction)
 
 
+def exact_nn(pmap: PointMap, points: torch.Tensor, mask: torch.Tensor) -> MapNNResult:
+    """Exact NN of the queries against the live map: K1 with ``valid_len``
+    over the prefix the append-only map fills."""
+    return _exact_nn_idx(pmap, points, mask)[0]
+
+
 def exact_nn_with_covs(
     pmap: PointMap, points: torch.Tensor, mask: torch.Tensor,
     prune_beyond: float | None = None,
 ) -> Tuple[MapNNResult, torch.Tensor]:
     """Exact NN against the live map plus each winner's stored covariance
     (identity where nothing was found)."""
+    nn, idx = _exact_nn_idx(pmap, points, mask, prune_beyond)
+    covs = torch.where(nn.found[None, :], pmap.covs[:, idx],
+                       eye6(points.shape[0], pmap.covs.dtype, points.device))
+    return nn, covs
+
+
+def _exact_nn_idx(pmap: PointMap, points: torch.Tensor, mask: torch.Tensor,
+                  prune_beyond: float | None = None) -> Tuple[MapNNResult, torch.Tensor]:
     res = nn_ops.nearest_neighbors(
         points, pmap.points, pmap.occupancy_mask(), valid_len=pmap.size,
         prune_beyond=prune_beyond,
@@ -136,5 +150,4 @@ def exact_nn_with_covs(
         dist2=torch.where(found, res.dist2, float("inf")),
         found=found,
     )
-    covs = torch.where(found[None, :], pmap.covs[:, res.idx], eye6(points.shape[0], pmap.covs.dtype, points.device))
-    return nn, covs
+    return nn, res.idx

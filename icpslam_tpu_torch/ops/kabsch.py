@@ -62,6 +62,15 @@ def rigid_align_from_sums(
     return Pose(t=t, q=q), ok
 
 
+def weighted_rigid_align_comps(px, py, pz, dx, dy, dz, weights: torch.Tensor,
+                               min_total_weight: float = 1e-6) -> Tuple[Pose, bool]:
+    """:func:`weighted_rigid_align` on six (N,) component tensors (the JAX
+    version's structure-of-arrays form): the sums on their device, the
+    solve on the host."""
+    s = rigid_align_sums(px, py, pz, dx, dy, dz, weights)
+    return rigid_align_from_sums(s.detach().cpu(), min_total_weight)
+
+
 def weighted_rigid_align(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor):
     """Best-fit pose mapping ``src`` (N, 3) onto ``dst`` under ``weights``;
     the sums run on the inputs' device, the solve on the host."""

@@ -14,6 +14,88 @@ import numpy as np
 import torch
 
 
+def det3(m: torch.Tensor) -> torch.Tensor:
+    """Determinant of (..., 3, 3)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def _clamp_det(det: torch.Tensor, eps: float) -> torch.Tensor:
+    return torch.where(det.abs() < eps,
+                       torch.sign(det) * eps + (det == 0).to(det.dtype) * eps, det)
+
+
+def inv3(m: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Closed-form inverse of (..., 3, 3) by the adjugate, |det| clamped
+    away from zero."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    D = -(b * i - c * h)
+    E = a * i - c * g
+    F = -(a * h - b * g)
+    G = b * f - c * e
+    H = -(a * f - c * d)
+    I = a * e - b * d  # noqa: E741
+    det = _clamp_det(a * A + b * B + c * C, eps)
+    adj = torch.stack([A, D, G, B, E, H, C, F, I], dim=-1).reshape(m.shape)
+    return adj / det[..., None, None]
+
+
+def solve_psd(H: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.Tensor:
+    """Solve ``(H + damping·diag(H) + 1e-9 I) x = b`` for symmetric PSD H
+    (..., n, n), batched."""
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    if damping:
+        H = H + damping * torch.diagonal(H, dim1=-2, dim2=-1)[..., None] * eye
+    return torch.linalg.solve(H + 1e-9 * eye, b[..., None])[..., 0]
+
+
+def symmetrize(m: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (m + m.transpose(-1, -2))
+
+
+def eigvals_sym3(A: torch.Tensor) -> torch.Tensor:
+    """Ascending eigenvalues (..., 3) of symmetric (..., 3, 3)."""
+    return torch.stack(eigvals_sym3_comps(*sym3_comps(A)), dim=-1)
+
+
+def smallest_eigenvector_sym3(A: torch.Tensor, fallback: tuple = (0.0, 0.0, 1.0)) -> torch.Tensor:
+    """Unit eigenvector (..., 3) of the smallest eigenvalue of symmetric (..., 3, 3)."""
+    return torch.stack(smallest_eigenvector_sym3_comps(*sym3_comps(A), fallback=fallback), dim=-1)
+
+
+def _sym_rows(xx, xy, xz, yy, yz, zz) -> torch.Tensor:
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1), torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
+
+
+def pack_sym3(A: torch.Tensor) -> torch.Tensor:
+    """Symmetric (..., 3, 3) → (..., 6) as ``[xx, xy, xz, yy, yz, zz]``."""
+    return torch.stack(sym3_comps(A), dim=-1)
+
+
+def unpack_sym3(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_sym3`: (..., 6) → symmetric (..., 3, 3)."""
+    return _sym_rows(*p.unbind(-1))
+
+
+def mat_to_sym6(A: torch.Tensor) -> torch.Tensor:
+    """Symmetric (..., 3, 3) → the components-first (6, ...) layout of the
+    registration path."""
+    return torch.stack(sym3_comps(A))
+
+
+def sym6_to_mat(c: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`mat_to_sym6`: (6, ...) → symmetric (..., 3, 3)."""
+    return _sym_rows(*c.unbind(0))
+
+
 def sym3_comps(A: torch.Tensor):
     """Split symmetric (..., 3, 3) into its six (...,) components."""
     return (
@@ -27,11 +109,7 @@ def inv_sym3_comps(a, b, c, d, e, f, eps: float = 1e-12):
     cof00 = d * f - e * e
     cof01 = c * e - b * f
     cof02 = b * e - c * d
-    det = a * cof00 + b * cof01 + c * cof02
-    small = det.abs() < eps
-    det = torch.where(
-        small, torch.sign(det) * eps + (det == 0).to(det.dtype) * eps, det
-    )
+    det = _clamp_det(a * cof00 + b * cof01 + c * cof02, eps)
     inv_det = 1.0 / det
     return (
         cof00 * inv_det,

@@ -18,6 +18,13 @@ device: the host decides with ``event.query()``, which does not block.
 The trigger needs no device read either: ``slam_step`` hands its host
 counters over on ``SlamOutput.host``.
 
+The trigger keeps JAX's schedule call for call. JAX arms an asynchronous
+read of ``kf_since_opt`` on one call, reads it on a later one and launches
+with that later call's state; the call that folds arms nothing. Here the
+value armed is the step's host counter, and it is read on the next call,
+which is JAX's schedule at ``max_lag=0`` (a probe read on the call after
+it was armed, whatever the device).
+
 **Divergence from JAX.** JAX's fold writes the solve's pose ``i`` into
 store slot ``i`` for every ``i < snapshot_count``. Marginalisation compacts
 the store and moves every keyframe above the victim down by one slot, so
@@ -126,11 +133,14 @@ class DeferredBackend:
 
     Call ``maybe_launch_or_fold(state, out)`` after every ``slam_step``
     (``out`` is the step's ``SlamOutput``). Every ``check_every`` calls
-    without a solve in flight it launches one if the window has filled
-    (``out.host.kf_since_opt >= keyframes_window``); with one in flight it
-    folds it on the first call that finds it done, or after ``max_lag``
-    calls (the bounded-staleness guarantee; on the card the main stream
-    then waits for the solve on the device, the host does not).
+    without a solve in flight it arms the trigger with
+    ``out.host.kf_since_opt``; on the next call it launches a solve on
+    that call's state if the armed value had filled the window
+    (``>= keyframes_window``). With a solve in flight it folds it on the
+    first call that finds it done, or after ``max_lag`` calls (the
+    bounded-staleness guarantee; on the card the main stream then waits
+    for the solve on the device, the host does not), and arms nothing on
+    that call.
     ``flush`` folds what is pending at the end of the stream and runs a
     solve that is due. On the card the solves replay CUDA graphs (Schur
     excepted) on a side stream; on the CPU they run eagerly at the launch.
@@ -162,6 +172,7 @@ class DeferredBackend:
         self._evicted: List[int] = []
         self._age = 0
         self._since_check = 0
+        self._armed: Optional[int] = None  # kf_since_opt when the trigger was armed
         self._calls = 0
         self.num_launched = 0
         self.num_folded = 0
@@ -231,11 +242,16 @@ class DeferredBackend:
                 if self._age >= self.max_lag or self._ready():
                     state = self._fold(state)
                 return state
+            if self._armed is not None:
+                due = self._armed >= self.config.keyframes_window
+                self._armed = None
+                if due:
+                    self._launch(state, host._asdict())
+                    return state
             self._since_check += 1
             if self._since_check >= self.check_every:
                 self._since_check = 0
-                if host.kf_since_opt >= self.config.keyframes_window:
-                    self._launch(state, host._asdict())
+                self._armed = host.kf_since_opt
             return state
         finally:
             self._calls += 1
@@ -247,6 +263,7 @@ class DeferredBackend:
         self._bind(state.keyframes.count.device)
         if self._pending is not None:
             state = self._fold(state)
+        self._armed = None
         kf_since, n_kf, n_edges, lc_since = (int(v) for v in to_host(torch.stack([
             state.kf_since_opt, state.keyframes.count, state.edges.count, state.lc_since_opt,
         ])))

@@ -2,8 +2,13 @@
 
 Voxel filter → GICP covariances (k-NN or radius) → ICP against the
 previous cloud → accept gate → pose and accumulator update. The JAX ``lax.cond`` around the
-registration becomes a host branch on ``do_register``, which the caller
-passes in (it reads the state's flags once per scan).
+registration becomes a host branch on ``do_register``. ``odometry_step``
+takes JAX's contract, ``(state, scan, config)``, and then reads the
+state's two flags in one counted host read; ``slam_step``, which reads
+them with its other counters, passes them in. ``run_scans`` drives a
+stacked chunk (JAX's ``lax.scan``) with one flag read per chunk, and
+``drain_accumulator`` hands out the relative motion since the last drain
+(the reference's ``getEstimates``).
 
 With ``deskew_rounds > 0`` the step de-skews in the loop, without an INS,
 in one of JAX's three modes (``deskew_mode``):
@@ -24,7 +29,7 @@ in one of JAX's three modes (``deskew_mode``):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,7 +41,9 @@ from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.ops import covariance as cov_ops
 from icpslam_tpu_torch.ops import icp as icp_ops
 from icpslam_tpu_torch.ops import skew_icp
+from icpslam_tpu_torch.utils import tree
 from icpslam_tpu_torch.utils.device import resolve as resolve_device
+from icpslam_tpu_torch.utils.sync import to_host
 
 
 def compute_covariances(cloud: pc.PointCloud, icfg) -> torch.Tensor:
@@ -104,6 +111,47 @@ def set_initial_pose(state: OdometryState, pose: Pose) -> OdometryState:
     return state._replace(pose=pose)
 
 
+def drain_accumulator(state: OdometryState) -> Tuple[Pose, OdometryState]:
+    """The relative transform accumulated since the last drain, and the
+    state with the accumulator reset to identity (``getEstimates``,
+    ``icp_odometer.cpp:82-94``)."""
+    return state.accum, state._replace(accum=se3.identity(device=state.accum.t.device))
+
+
+def host_flags(state: OdometryState) -> Tuple[bool, int]:
+    """``(initialized, skip_count)`` in one counted host read."""
+    initialized, skip_count = (int(v) for v in to_host(torch.stack([
+        state.initialized.to(torch.int32), state.skip_count.to(torch.int32)])))
+    return bool(initialized), skip_count
+
+
+def registration_flags(initialized: bool, skip_count: int) -> Tuple[bool, bool]:
+    """``(do_register, skip)`` from the flags, as JAX derives them."""
+    skip = initialized and skip_count > 0
+    return initialized and not skip, skip
+
+
+def run_scans(
+    state: OdometryState, scans: pc.PointCloud, config
+) -> Tuple[OdometryState, OdometryOutput]:
+    """A chunk of scans through :func:`odometry_step`: ``scans`` is a
+    stacked cloud ``(T, N, 3)`` / ``(T, N)``; the outputs gain the leading
+    axis (JAX's ``lax.scan`` contract). The flags are read once, at the
+    chunk's start, and then stepped on the host as the step sets them
+    (``initialized`` becomes true; ``skip_count`` counts down while
+    skipping, else restarts at ``num_clouds_skip``), so the chunk launches
+    exactly the kernels of one-by-one driving, in the same order."""
+    initialized, skip_count = host_flags(state)
+    outs = []
+    for i in range(scans.points.shape[0]):
+        do_register, skip = registration_flags(initialized, skip_count)
+        state, out = odometry_step(state, pc.PointCloud(scans.points[i], scans.mask[i]), config,
+                                   do_register, skip)
+        outs.append(out)
+        initialized, skip_count = True, skip_count - 1 if skip else config.num_clouds_skip
+    return state, tree.stack(outs)
+
+
 def check_supported(config) -> None:
     """Raise for odometry options outside JAX's set."""
     if config.deskew_rounds > 0 and config.deskew_mode not in ("coupled", "joint", "alternate"):
@@ -153,13 +201,18 @@ def _masked(points: torch.Tensor, mask: torch.Tensor) -> pc.PointCloud:
 
 
 def odometry_step(
-    state: OdometryState, raw_scan: pc.PointCloud, config, do_register: bool, skip: bool
+    state: OdometryState, raw_scan: pc.PointCloud, config,
+    do_register: Optional[bool] = None, skip: Optional[bool] = None,
 ) -> Tuple[OdometryState, OdometryOutput]:
     """Process one raw sensor-frame scan.
 
-    ``do_register`` / ``skip`` are the host values of
-    ``initialized & ~skip`` and ``initialized & skip_count > 0``.
+    ``do_register`` / ``skip``: the host values of ``initialized & ~skip``
+    and ``initialized & skip_count > 0``, from a caller that has read the
+    state's flags already; without them the step reads the flags itself
+    (one counted host read).
     """
+    if do_register is None or skip is None:
+        do_register, skip = registration_flags(*host_flags(state))
     check_supported(config)
     icfg = config.icp_odometry
     plane = icfg.mode == "plane"

@@ -54,6 +54,7 @@ from icpslam_tpu_torch.parallel import dist_graph
 from icpslam_tpu_torch.pipeline import odometry as odo
 from icpslam_tpu_torch.pipeline import robot_odometry as robot_odo
 from icpslam_tpu_torch.utils.device import resolve as resolve_device
+from icpslam_tpu_torch.utils import tree
 from icpslam_tpu_torch.utils.sync import to_host
 
 
@@ -389,8 +390,7 @@ def slam_step(
     ]))
     (initialized, skip_count, n_kf, map_size, kf_since, lc_since, n_edges, wheel_init,
      wheel_kf_valid) = (int(v) for v in flags)
-    skip = bool(initialized) and skip_count > 0
-    do_register = bool(initialized) and not skip
+    do_register, skip = odo.registration_flags(bool(initialized), skip_count)
 
     # ---- 1. front-end odometry --------------------------------------------
     odom_state, oout = odo.odometry_step(state.odom, raw_scan, config, do_register, skip)
@@ -546,17 +546,6 @@ def slam_step(
     return state, out
 
 
-def _stack(outs):
-    """Stack a list of like NamedTuples of tensors along a new leading axis;
-    None fields stay None."""
-    first = outs[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return torch.stack(outs)
-    return type(first)(*(_stack([getattr(o, f) for o in outs]) for f in first._fields))
-
-
 def run_scans(
     state: SlamState, scans: pc.PointCloud, config, stamps=None, mesh=None
 ) -> Tuple[SlamState, SlamOutput]:
@@ -574,4 +563,4 @@ def run_scans(
                                stamp=stamp, mesh=mesh)
         hosts.append(out.host)
         outs.append(out._replace(host=None))
-    return state, _stack(outs)._replace(host=hosts[-1])
+    return state, tree.stack(outs)._replace(host=hosts[-1])

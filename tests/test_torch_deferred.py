@@ -14,6 +14,14 @@ carried into the port (``utils/interop.py``), which calls the same modules:
   poses and the map-frame pose after the fold within 1e-4 m of JAX's,
   counters equal.
 
+Both backends, each over its own package's ``slam_step``, with
+``max_lag=0`` (the probe read and the solve folded on the next call,
+whatever the device) at the runners' two ``check_every`` values: the
+port's launches and folds come on JAX's calls, and the final graph and
+map-frame poses agree within 1e-4 m. With a device that never reports a
+solve done, each fold comes ``max_lag`` calls after its launch and the
+launches spread out as ``max_lag`` grows.
+
 Then, port only: the backend against the inline back end over the same
 scans (``tests/test_deferred.py::test_matches_inline_quality``), the
 ``ValueError`` without ``defer_optimization``, and a fold across an
@@ -156,6 +164,85 @@ def test_fold_on_the_schedule_matches_jax(schedule):
         assert int(got.map.size) == int(folded.map.size)
 
 
+@pytest.fixture(scope="module")
+def jax_step():
+    return jax.jit(jslam.slam_step, static_argnums=(2,))
+
+
+@pytest.mark.parametrize("check_every", [1, OVER["keyframes_window"]],
+                         ids=["every-call", "every-window"])
+def test_backend_schedule_matches_jax(scans, jax_step, check_every):
+    """JAX's ``DeferredBackend`` and the port's, each after its own
+    package's step, with ``max_lag=0``: JAX's launch and fold calls (read
+    from ``num_launched`` / ``num_folded`` after each call) are the
+    port's, and after ``flush`` the poses agree within 1e-4 m."""
+    pts_gt, gt = scans
+    jcfg = tiny_config(**OVER, defer_optimization=True)
+    tcfg = _tcfg(defer_optimization=True)
+    jb = jdef.DeferredBackend(jcfg, max_lag=0, check_every=check_every)
+    tb = tdef.DeferredBackend(tcfg, max_lag=0, check_every=check_every)
+    js = jslam.init_state(jcfg, initial_pose=jse3.Pose(t=gt[0][0], q=gt[1][0]))
+    ts = tslam.init_state(tcfg, initial_pose=Pose(torch.from_numpy(gt[0][0]),
+                                                  torch.from_numpy(gt[1][0])), device="cpu")
+    launched, folded = [], []
+    for k, (pts, mask) in enumerate(pts_gt):
+        js, _ = jax_step(js, jpc.PointCloud(points=pts, mask=mask), jcfg)
+        n_launched, n_folded = jb.num_launched, jb.num_folded
+        js = jb.maybe_launch_or_fold(js)
+        if jb.num_launched > n_launched:
+            launched.append(k)
+        if jb.num_folded > n_folded:
+            folded.append(k)
+        ts, out = tslam.slam_step(ts, tpc.PointCloud(torch.from_numpy(pts),
+                                                     torch.from_numpy(mask)), tcfg)
+        ts = tb.maybe_launch_or_fold(ts, out)
+    assert len(launched) >= 3, launched
+    assert tb.launched_at == launched
+    assert tb.folded_at == folded
+    js, ts = jb.flush(js), tb.flush(ts)
+    assert (tb.num_launched, tb.num_folded) == (jb.num_launched, jb.num_folded)
+    assert int(ts.num_optimizations) == int(js.num_optimizations)
+    n = int(js.keyframes.count)
+    assert int(ts.keyframes.count) == n
+    np.testing.assert_allclose(ts.keyframes.pose_graph.t.numpy()[:n],
+                               np.asarray(js.keyframes.pose_graph.t)[:n], rtol=0, atol=1e-4)
+    pose = tse3.compose(ts.map_to_odom, ts.slam_pose).t.numpy()
+    want = jse3.compose(js.map_to_odom, js.slam_pose).t
+    np.testing.assert_allclose(pose, np.asarray(want), rtol=0, atol=1e-4)
+
+
+class _NeverReady(tdef.DeferredBackend):
+    """A device that never reports a solve done: each fold waits out
+    ``max_lag`` calls."""
+
+    def _ready(self):
+        return False
+
+
+@pytest.mark.parametrize("check_every", [1, OVER["keyframes_window"]],
+                         ids=["every-call", "every-window"])
+def test_fold_lag_spaces_the_launches(scans, check_every):
+    """The later a solve is reported done, the fewer solves a stream
+    launches: each fold comes ``max_lag`` calls after its launch, and the
+    calls between two launches grow with ``max_lag`` (every-call: 5, 6,
+    10; every-window: 6, 9, 13 at ``max_lag`` 1, 4, 8)."""
+    pts_gt, gt = scans
+    cfg = _tcfg(defer_optimization=True)
+    gaps = []
+    for lag in (1, 4, 8):
+        backend = _NeverReady(cfg, max_lag=lag, check_every=check_every)
+        state = tslam.init_state(cfg, initial_pose=Pose(torch.from_numpy(gt[0][0]),
+                                                        torch.from_numpy(gt[1][0])), device="cpu")
+        for pts, mask in pts_gt:
+            state, out = tslam.slam_step(state, tpc.PointCloud(torch.from_numpy(pts),
+                                                               torch.from_numpy(mask)), cfg)
+            state = backend.maybe_launch_or_fold(state, out)
+        assert len(backend.launched_at) >= 2, backend.launched_at
+        assert all(f - l == lag for l, f in zip(backend.launched_at, backend.folded_at))
+        gaps.append(backend.launched_at[1] - backend.launched_at[0])
+    assert gaps[0] < gaps[1] < gaps[2], gaps
+
+
 def test_matches_inline_quality(scans):
     """Both runs through the runner's loop, the deferred one with the
     backend as its ``post_step`` hook."""
@@ -262,6 +349,9 @@ def test_backend_folds_across_an_eviction():
     backend = tdef.DeferredBackend(cfg, max_lag=8)
     host = tslam.HostCounts(keyframes=8, edges=7, kf_since_opt=8, lc_since_opt=0, evicted=-1)
     out = tslam.SlamOutput(*([None] * 10), host=host)
+    # the first call arms the trigger, the second launches
+    assert backend.maybe_launch_or_fold(state, out) is state
+    assert backend.num_launched == 0
     assert backend.maybe_launch_or_fold(state, out) is state
     assert backend.num_launched == 1
     solve = backend._pending
@@ -269,5 +359,5 @@ def test_backend_folds_across_an_eviction():
     out = out._replace(host=host._replace(kf_since_opt=1, evicted=2))
     folded = backend.maybe_launch_or_fold(later, out)
     assert backend.num_folded == 1 and backend.folds_across_eviction == 1
-    assert backend.launched_at == [0] and backend.folded_at == [1]
+    assert backend.launched_at == [1] and backend.folded_at == [2]
     assert _snapshot_poses_on_own_keyframe(folded, solve) <= 1e-6

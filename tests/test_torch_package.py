@@ -69,6 +69,95 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+JAX_PKG = REPO / "icpslam_tpu"
+# JAX's public names the port does not carry, on purpose: the internals of
+# JAX's voxel sort (the port's ``cloud/voxel.py::_packed_keys`` sort
+# replaces them; the voxel parity tests hold it to JAX) and two helpers
+# that return JAX ``NamedSharding`` objects (the port has none,
+# ``parallel/mesh.py``)
+NOT_PORTED = {
+    ("cloud/voxel.py", "lexsort_order"),
+    ("cloud/voxel.py", "segment_starts"),
+    ("parallel/mesh.py", "replicated"),
+    ("parallel/sharded_map.py", "shard_placement"),
+}
+
+
+def _jax_public_names(path: Path):
+    """Public top-level ``def`` and ``class`` names of a JAX module, read
+    with ``ast`` (the module is not imported)."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    return [n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+def _jax_init_exports(path: Path):
+    """``(module, name)`` of each name a JAX ``__init__.py`` imports from
+    its own package, read with ``ast``."""
+    import ast
+
+    out = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.module.startswith("icpslam_tpu"):
+            out += [(node.module, a.asname or a.name) for a in node.names]
+    return out
+
+
+def test_every_public_jax_name_has_its_counterpart():
+    """Every public top-level function and class of every module of
+    ``icpslam_tpu/`` (the Pallas kernels under ``ops/pallas/`` aside) has a
+    counterpart of the same name in the port's module of the same path;
+    the only exceptions are ``NOT_PORTED``."""
+    import importlib
+
+    modules = sorted(p for p in JAX_PKG.rglob("*.py")
+                     if p.name != "__init__.py" and "pallas" not in p.relative_to(JAX_PKG).parts)
+    assert len(modules) > 40
+    missing, exempt = [], set()
+    for path in modules:
+        rel = path.relative_to(JAX_PKG).as_posix()
+        port = importlib.import_module(
+            "icpslam_tpu_torch." + rel[:-3].replace("/", "."))
+        for name in _jax_public_names(path):
+            if (rel, name) in NOT_PORTED:
+                exempt.add((rel, name))
+                assert not hasattr(port, name), f"{rel}:{name} is ported: drop it from NOT_PORTED"
+            elif not hasattr(port, name):
+                missing.append(f"{rel}:{name}")
+    assert not missing, missing
+    assert exempt == NOT_PORTED
+
+
+def test_subpackages_export_what_jax_exports():
+    """Each name a JAX ``__init__.py`` exports imports from the port's
+    counterpart package, ``SlamConfig`` from the top level included."""
+    import importlib
+
+    inits = sorted(p for p in JAX_PKG.rglob("__init__.py")
+                   if "pallas" not in p.relative_to(JAX_PKG).parts)
+    checked = 0
+    for init in inits:
+        rel = init.parent.relative_to(JAX_PKG)
+        pkg = ".".join(("icpslam_tpu_torch",) + rel.parts)
+        port = importlib.import_module(pkg)
+        for module, name in _jax_init_exports(init):
+            if module.startswith("icpslam_tpu.") and module != "icpslam_tpu.config":
+                # ``from icpslam_tpu.cloud.pointcloud import PointCloud``:
+                # the name is also the port's submodule's
+                sub = importlib.import_module(module.replace("icpslam_tpu", "icpslam_tpu_torch", 1))
+                assert getattr(port, name) is getattr(sub, name), f"{pkg}.{name}"
+            else:
+                assert hasattr(port, name), f"{pkg}.{name}"
+            checked += 1
+    assert checked > 40
+    import icpslam_tpu_torch
+
+    assert icpslam_tpu_torch.SlamConfig is tconfig.SlamConfig
+
+
 def test_scan_library_is_the_ports_own():
     """The port builds ``native/scanio.cpp`` into its own ``_build/`` and
     loads that library, never the JAX package's ``native/libscanio.so``."""
@@ -404,3 +493,75 @@ def test_tool_defaults_write_no_file_that_predates_the_port(tool):
     cache = ap.get_default("cache")
     if cache is not None:
         assert not Path(cache).resolve().is_relative_to(REPO), cache
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
+def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
+    """``chip_smoke.py`` exits non-zero and prints no result where
+    ``torch.cuda.is_available()`` is false, in the checkout and alone in a
+    directory that holds nothing else of the repo."""
+    script = REPO / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script = tmp_path / "chip_smoke.py"
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_stops_every_process_it_starts():
+    """``chip_smoke.py``'s exit path: multiprocessing's resource tracker is
+    closed (not killed), and a child still running and the orphan of a
+    child, adopted because the script is its descendants' subreaper, are
+    killed and waited for: none is left."""
+    code = """
+import json, os, subprocess
+import chip_smoke
+
+if __name__ == "__main__":
+    chip_smoke._adopt_orphans()
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pool.map(abs, range(2))
+    child = subprocess.Popen(["sleep", "60"], stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL)
+    orphan = int(subprocess.run(["sh", "-c", "sleep 60 >/dev/null 2>&1 & echo $!"],
+                                capture_output=True, text=True).stdout)
+    killed = chip_smoke._stop_children()
+    print(json.dumps({"killed": sorted(killed), "want": sorted([child.pid, orphan]),
+                      "left": sorted(chip_smoke._descendants(os.getpid()))}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.splitlines()[-1])
+    assert out["killed"] == out["want"] and out["left"] == []
+
+
+def test_chip_smoke_stops_its_processes_when_terminated():
+    """SIGTERM, the signal a time limit sends, ends ``chip_smoke.py`` through
+    the same exit path: the child it had running is killed and waited for."""
+    code = """
+import subprocess, sys, time
+import chip_smoke
+
+def main(argv=None):
+    child = subprocess.Popen(["sleep", "60"], stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL)
+    print(child.pid, flush=True)
+    time.sleep(60)
+
+chip_smoke.main = main
+sys.exit(chip_smoke._run())
+"""
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        child = int(proc.stdout.readline())
+        proc.terminate()
+        _, err = proc.communicate(timeout=30)
+    finally:
+        proc.kill()
+    assert proc.returncode == 143, err
+    assert not os.path.exists(f"/proc/{child}")
