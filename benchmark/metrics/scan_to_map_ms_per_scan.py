@@ -1,0 +1,10 @@
+"""Host time inside ``scan_to_map.refine_and_grow`` per window scan, ms
+(the benchmark's span; no synchronize)."""
+
+
+def read(ctx):
+    ctx = ctx.profiled  # the traced window
+    if ctx is None or ctx.spans is None or ctx.n == 0:
+        return None
+    n = ctx.n
+    return 1000.0 * sum(ctx.spans["bench.scan_to_map"][:n]) / n
