@@ -36,6 +36,7 @@ import torch
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph import pose_graph as pg
 from icpslam_tpu_torch.parallel import dist_graph
+from icpslam_tpu_torch.utils import profiling
 
 _EDGE_FIELDS = pg.EdgeSet._fields
 
@@ -113,6 +114,7 @@ class CapturedSolves:
             g = self.graphs[key] = self._capture(inputs, solve, counter)
         return g
 
+    @profiling.spanned("graph.capture")
     def _capture(self, inputs, solve, counter) -> CapturedSolve:
         for name, x in inputs.items():
             if x.device != self.device:
@@ -121,8 +123,7 @@ class CapturedSolves:
         static = {k: v.clone() for k, v in inputs.items()}
         # the warm-up and the capture run the solve's Python body twice:
         # the call counters count replays, not these
-        saved = (pg.optimize.pcg_solves, pg.optimize_window.calls, dist_graph.optimize.calls)
-        try:
+        with profiling.paused():
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
@@ -137,8 +138,7 @@ class CapturedSolves:
             # invalidates the capture
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outputs = solve(static)
-        finally:
-            pg.optimize.pcg_solves, pg.optimize_window.calls, dist_graph.optimize.calls = saved
+        profiling.count("graph.captures")
         return CapturedSolve(graph, static, outputs, counter)
 
     def prepare_full(self, nodes: Pose, edges: pg.EdgeSet, node_mask: torch.Tensor,

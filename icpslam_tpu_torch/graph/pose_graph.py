@@ -24,6 +24,7 @@ import torch
 from icpslam_tpu_torch.geometry import se3
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph import schur as schur_mod
+from icpslam_tpu_torch.utils import profiling
 from icpslam_tpu_torch.utils.sync import to_host
 
 
@@ -422,6 +423,7 @@ def optimize(
 
 
 optimize.pcg_solves = 0
+profiling.register_attribute("graph.pcg_solves", optimize, "pcg_solves")
 
 
 def _gn_or_lm(step, nodes: Pose, edges: EdgeSet, iterations: int, mode: str, init_damping: float):
@@ -624,3 +626,4 @@ def optimize_window(
 
 
 optimize_window.calls = 0
+profiling.register_attribute("graph.window_solves", optimize_window, "calls")

@@ -3,7 +3,8 @@
 
 ``prefetch(iterable, prep, depth)`` yields ``prep(item)`` for each item,
 computed ``depth`` items ahead on a background thread; the producer's
-exception is raised in the consumer, and the queue is bounded. Unlike
+exception is raised in the consumer, and the queue is bounded. The
+consumer's wait for the next item is the span ``runner.wait``. Unlike
 the JAX version, the worker stops when the consumer leaves: closing the
 generator (``close()``, ``break`` out of a ``for`` over it, or its
 garbage collection) sets a stop flag, the worker finishes the item in hand,
@@ -29,6 +30,8 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from icpslam_tpu_torch.utils import profiling
 
 _STOP = object()
 
@@ -72,7 +75,8 @@ def prefetch(iterable: Iterable, prep: Callable, depth: int = 3) -> Iterator:
     t.start()
     try:
         while True:
-            x = q.get()
+            with profiling.annotate("runner.wait"):
+                x = q.get()
             if x is _STOP:
                 if err:
                     raise err[0]

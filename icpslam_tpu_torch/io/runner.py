@@ -44,9 +44,11 @@ the viewer, refreshed every ``--html-every`` scans during the run
 (``--debug-dump`` and ``--html-every`` need ``--chunk 1``);
 ``--deferred-optimize`` runs the graph solve beside the stream
 (``pipeline/deferred.py``); ``--trace DIR`` writes a ``torch.profiler``
-trace. Scans are prepared and uploaded three ahead of the step on a
-thread (``io/prefetch.py``; on the card into pinned memory and on a side
-stream), so the step time excludes the upload.
+trace with the port's tracing on (``utils/profiling.py``): its spans
+beside the kernels, and in the summary ``span_ms_per_scan`` and
+``counts_per_scan``. Scans are prepared and uploaded three ahead of the
+step on a thread (``io/prefetch.py``; on the card into pinned memory and
+on a side stream), so the step time excludes the upload.
 
 The run prints ATE/RPE against the ground truth and a one-line JSON
 summary: JAX's keys, and the port's host syncs, kernel launches, solves
@@ -71,7 +73,6 @@ from icpslam_tpu_torch.cloud import pointcloud as pc
 from icpslam_tpu_torch.config import IcpConfig, SlamConfig, from_yaml, kitti_config
 from icpslam_tpu_torch.eval import metrics
 from icpslam_tpu_torch.geometry.se3 import Pose
-from icpslam_tpu_torch.graph import pose_graph
 from icpslam_tpu_torch.io import prefetch as prefetch_mod
 from icpslam_tpu_torch.io import synthetic
 from icpslam_tpu_torch.mapping import backend as map_backend
@@ -83,6 +84,7 @@ from icpslam_tpu_torch.utils.logging import Logger
 from icpslam_tpu_torch.utils.sync import to_host
 
 # the kernel wrappers, by the name the summary reports their launches under
+# (their launch counters are the profiling counters "<name>.launches")
 KERNELS = {
     "nn1": nn_ops.nn1_cuda,                          # K1
     "knn": nn_ops.knn_cuda,                          # K2
@@ -106,6 +108,11 @@ class RunResult:
     stamp_origin: Optional[float] = None  # the stream's first stamp; device stamps are relative
     setup_ms: float = 0.0     # entry to the first scan: state set-up, stream start
     trailing_ms: float = 0.0  # loop exit to return: the records' read
+    # with tracing on (utils/profiling.py), else empty: per span, ms per scan
+    # ("total", "self") and its "parent"; per counter, the count per scan in
+    # all ("total") and by the innermost span it was counted in
+    spans: Dict[str, dict] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, Dict[str, List[float]]] = dataclasses.field(default_factory=dict)
 
     def timing_summary(self) -> dict:
         """JAX's timing keys: the first scan's time (the kernels' build
@@ -166,7 +173,36 @@ class RunResult:
         if self.step_ms:
             a = np.asarray(self.step_ms[1:] or self.step_ms)
             out["step_ms_p90"] = float(np.percentile(a, 90))
+        if self.spans:
+            out["span_ms_per_scan"] = {
+                name: {"total": float(np.mean(s["total"])), "self": float(np.mean(s["self"])),
+                       "parent": s["parent"]} for name, s in sorted(self.spans.items())}
+        if self.counts:
+            out["counts_per_scan"] = {name: {k: float(np.mean(v)) for k, v in by.items()}
+                                      for name, by in sorted(self.counts.items())}
         return out
+
+
+NO_SPAN = "(none)"  # RunResult.counts: counted outside every span
+
+
+def _per_scan(steps: List[tuple], parents: dict) -> tuple:
+    """``RunResult.spans`` and ``.counts`` from each scan's
+    ``(profiling.delta, live scans it is spread over)``."""
+    n = len(steps)
+    spans: Dict[str, dict] = {}
+    counts: Dict[str, Dict[str, List[float]]] = {}
+    for i, (d, live) in enumerate(steps):
+        for name, (_, total, own) in d["spans"].items():
+            s = spans.setdefault(name, {"total": [0.0] * n, "self": [0.0] * n,
+                                        "parent": parents.get(name)})
+            s["total"][i] = total / 1e6 / live
+            s["self"][i] = own / 1e6 / live
+        for name, v in d["counts"].items():
+            counts.setdefault(name, {}).setdefault("total", [0.0] * n)[i] = v / live
+        for (span, name), v in d["by_span"].items():
+            counts.setdefault(name, {}).setdefault(span or NO_SPAN, [0.0] * n)[i] = v / live
+    return spans, counts
 
 
 def _dump_debug_scan(debug_dir: str, i: int, out: slam.SlamOutput, reason: str) -> None:
@@ -224,7 +260,10 @@ def run_slam(
     ``prefetch_depth`` ahead on a thread. Each step (or chunk) ends by
     synchronizing the current stream, so ``step_ms`` holds its device work
     but not the upload, nor a solve running on another stream. ``mesh``
-    goes to every step (the sharded map and the dist-* solvers)."""
+    goes to every step (the sharded map and the dist-* solvers). The
+    per-scan counts are differences of ``profiling.snapshot()`` around
+    each step; with tracing on (``profiling.tracing``), so are
+    ``RunResult.spans`` and ``.counts``."""
     t0 = time.perf_counter()
     if debug_dir is not None and chunk > 1:
         raise ValueError("--debug-dump requires chunk=1 (per-scan products)")
@@ -237,10 +276,11 @@ def run_slam(
     origin: List[float] = []
 
     def prep(item):
-        arrays, stamp = item
-        if not origin:
-            origin.append(float(stamp))
-        return uploader.upload(arrays), float(stamp) - origin[0]
+        with profiling.annotate("runner.upload"):
+            arrays, stamp = item
+            if not origin:
+                origin.append(float(stamp))
+            return uploader.upload(arrays), float(stamp) - origin[0]
 
     packed, processed, step_ms, syncs, windows, pcgs = [], [], [], [], [], []
     launches = {name: [] for name in KERNELS}
@@ -248,24 +288,28 @@ def run_slam(
     buf: List[pc.PointCloud] = []
     stamp_buf: List[float] = []
     counters = {}
+    traced = profiling.enabled()
+    steps: List[tuple] = []  # with tracing on: each scan's (delta, live)
 
     def start_counts():
-        counters.update(s=to_host.count, w=pose_graph.optimize_window.calls,
-                        p=pose_graph.optimize.pcg_solves,
-                        k={name: fn.launches for name, fn in KERNELS.items()},
-                        t=time.perf_counter())
+        counters.update(snap=profiling.snapshot(), t=time.perf_counter())
 
     def end_counts(live: int):
         if cuda:
-            torch.cuda.current_stream(device).synchronize()
+            with profiling.annotate("runner.sync"):
+                torch.cuda.current_stream(device).synchronize()
         dt = (time.perf_counter() - counters["t"]) * 1000.0
+        d = profiling.delta(counters["snap"], profiling.snapshot())
+        got = d["counts"].get
         share = lambda total: [total / live] * live  # noqa: E731
         step_ms.extend(share(dt))
-        syncs.extend(share(to_host.count - counters["s"]))
-        windows.extend(share(pose_graph.optimize_window.calls - counters["w"]))
-        pcgs.extend(share(pose_graph.optimize.pcg_solves - counters["p"]))
-        for name, fn in KERNELS.items():
-            launches[name].extend(share(fn.launches - counters["k"][name]))
+        syncs.extend(share(got("host_syncs", 0)))
+        windows.extend(share(got("graph.window_solves", 0)))
+        pcgs.extend(share(got("graph.pcg_solves", 0)))
+        for name in KERNELS:
+            launches[name].extend(share(got(f"{name}.launches", 0)))
+        if traced:
+            steps.extend([(d, live)] * live)
 
     def flush(state):
         live = len(buf)
@@ -341,12 +385,13 @@ def run_slam(
     registered = (to_host(torch.cat([p.reshape(-1) for p in processed])) if processed
                   else np.zeros((0,), bool))
     t_end = time.perf_counter()
+    spans, counts = _per_scan(steps, profiling.snapshot()["parents"]) if traced else ({}, {})
     return RunResult(
         trajectory=traj(rec), records=rec, processed=registered, state=state,
         wall_time=t_end - t0, step_ms=step_ms, host_syncs=syncs,
         launches=launches, window_solves=windows, pcg_solves=pcgs,
         stamp_origin=origin[0] if origin else None, setup_ms=setup_ms,
-        trailing_ms=(t_end - t_trail) * 1000.0,
+        trailing_ms=(t_end - t_trail) * 1000.0, spans=spans, counts=counts,
     )
 
 

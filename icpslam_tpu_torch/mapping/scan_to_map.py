@@ -24,6 +24,7 @@ from icpslam_tpu_torch.mapping import backend as map_backend
 from icpslam_tpu_torch.mapping import point_map as pm
 from icpslam_tpu_torch.ops import icp as icp_ops
 from icpslam_tpu_torch.ops.linalg3 import rotate_sym6
+from icpslam_tpu_torch.utils import profiling
 from icpslam_tpu_torch.utils.sync import to_host
 
 
@@ -40,6 +41,7 @@ class RefineResult(NamedTuple):
     icp_iterations: torch.Tensor = None
 
 
+@profiling.spanned("scan_to_map.refine")
 def refine_and_grow(
     map_: map_backend.MapState,
     scan: pc.PointCloud,
@@ -71,18 +73,19 @@ def refine_and_grow(
         scan_covs = compute_covariances(scan, icfg)
 
     if map_empty:
-        cloud_in_map = pc.transform(raw_pose, scan)
-        if store_covs and aligned_insert:
-            grown = map_backend.insert_reusing_nn(
-                map_, cloud_in_map, res_m,
-                torch.full((scan.capacity,), float("inf"), device=dev),
-                covs=rotate_sym6(scan_covs, quat.to_matrix(raw_pose.q)),
-                eviction=config.map_eviction,
-            )
-        else:
-            grown = map_backend.insert(
-                map_, cloud_in_map, res_m, eviction=config.map_eviction, mesh=mesh
-            )
+        with profiling.annotate("scan_to_map.insert"):
+            cloud_in_map = pc.transform(raw_pose, scan)
+            if store_covs and aligned_insert:
+                grown = map_backend.insert_reusing_nn(
+                    map_, cloud_in_map, res_m,
+                    torch.full((scan.capacity,), float("inf"), device=dev),
+                    covs=rotate_sym6(scan_covs, quat.to_matrix(raw_pose.q)),
+                    eviction=config.map_eviction,
+                )
+            else:
+                grown = map_backend.insert(
+                    map_, cloud_in_map, res_m, eviction=config.map_eviction, mesh=mesh
+                )
         return RefineResult(
             success=torch.tensor(False, device=dev),
             refined_pose=raw_pose,
@@ -98,6 +101,7 @@ def refine_and_grow(
 
     prune = float(max(icfg.max_correspondence_distance, res_m) ** 2)
 
+    @profiling.spanned("scan_to_map.register")
     def one_round(pose: Pose):
         in_map = pc.transform(pose, scan)
         nn, map_covs = map_backend.query_nn_with_covs(
@@ -175,20 +179,21 @@ def refine_and_grow(
 
     success_h = bool(to_host(success))
     if success_h:
-        grow_cloud = pc.transform(refined, scan)
-        grow_covs = (
-            rotate_sym6(scan_covs, quat.to_matrix(refined.q))
-            if store_covs and aligned_insert else None
-        )
-        if aligned_insert:
-            final_map = map_backend.insert_reusing_nn(
-                map_, grow_cloud, res_m, nn.dist2, covs=grow_covs,
-                eviction=config.map_eviction, mesh=mesh,
+        with profiling.annotate("scan_to_map.insert"):
+            grow_cloud = pc.transform(refined, scan)
+            grow_covs = (
+                rotate_sym6(scan_covs, quat.to_matrix(refined.q))
+                if store_covs and aligned_insert else None
             )
-        else:
-            final_map = map_backend.insert(
-                map_, grow_cloud, res_m, eviction=config.map_eviction, mesh=mesh
-            )
+            if aligned_insert:
+                final_map = map_backend.insert_reusing_nn(
+                    map_, grow_cloud, res_m, nn.dist2, covs=grow_covs,
+                    eviction=config.map_eviction, mesh=mesh,
+                )
+            else:
+                final_map = map_backend.insert(
+                    map_, grow_cloud, res_m, eviction=config.map_eviction, mesh=mesh
+                )
     else:
         final_map = map_
     return RefineResult(

@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from icpslam_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -57,6 +59,7 @@ def library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
+@profiling.spanned("cuda_build.load")
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure.
 

@@ -32,6 +32,7 @@ from icpslam_tpu_torch.ops.linalg3 import (
     rotate_sym3_comps,
     solve_chol_unrolled,
 )
+from icpslam_tpu_torch.utils import profiling
 from icpslam_tpu_torch.utils.sync import to_host
 
 MIN_CORRESPONDENCES = 10
@@ -213,6 +214,7 @@ def icp(
             delta_pose = se3.se3_exp(torch.from_numpy(delta).to(dev))
         pose = se3.normalize(se3.compose(delta_pose, pose))
         it += 1
+    profiling.count("icp.iterations", it)
 
     if config.exact_fitness:
         _, px, py, pz = transform_comps(pose)

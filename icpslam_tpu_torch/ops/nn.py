@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from icpslam_tpu_torch.ops import cuda_build
+from icpslam_tpu_torch.utils import profiling
 
 _INF = float("inf")
 
@@ -194,6 +195,7 @@ def nn1_cuda(query, target, target_mask, valid_len=None, pairs=None) -> NNResult
 
 
 nn1_cuda.launches = 0
+profiling.register_attribute("nn1.launches", nn1_cuda, "launches")
 # the same calls by target capacity (a scan's max_points, the map's max_map_points)
 nn1_cuda.launches_by_capacity = {}
 
@@ -289,6 +291,7 @@ def knn_cuda(query, target, target_mask, k: int, pairs=None):
 
 
 knn_cuda.launches = 0
+profiling.register_attribute("knn.launches", knn_cuda, "launches")
 
 
 # ---------------------------------------------------------------------------
@@ -379,3 +382,4 @@ def nn1_matmul_cuda(query, target, target_mask, valid_len=None) -> NNResult:
 
 
 nn1_matmul_cuda.launches = 0
+profiling.register_attribute("nn1_matmul.launches", nn1_matmul_cuda, "launches")

@@ -27,6 +27,7 @@ import torch
 
 from icpslam_tpu_torch.ops import cuda_build
 from icpslam_tpu_torch.ops.nn import _check, _pairs_ptr, _scratch, _sqdist
+from icpslam_tpu_torch.utils import profiling
 
 Moments = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -174,3 +175,4 @@ def radius_moments_cuda(query, target, target_mask, radius: float, sigma: float 
 
 
 radius_moments_cuda.launches = 0
+profiling.register_attribute("radius.launches", radius_moments_cuda, "launches")

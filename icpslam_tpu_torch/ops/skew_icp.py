@@ -41,6 +41,7 @@ from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.ops import nn as nn_ops
 from icpslam_tpu_torch.ops.icp import MIN_CORRESPONDENCES, _huber_weights
 from icpslam_tpu_torch.ops.linalg3 import inv_sym3_comps, rotate_sym3_comps
+from icpslam_tpu_torch.utils import profiling
 from icpslam_tpu_torch.utils.sync import to_host
 
 
@@ -254,6 +255,7 @@ def coupled_deskew_icp(
         if free_source_twist:
             M = M + delta_t[6:]
         it += 1
+    profiling.count("icp.iterations", it)
     return _result(pose, M, d2, corr, it, H6, free_source_twist, want_hessian)
 
 
@@ -339,4 +341,5 @@ def skew_aware_icp(
         pose = se3.normalize(se3.compose(se3.se3_exp(delta_t[:6]), pose))
         M = M + delta_t[6:]
         it += 1
+    profiling.count("icp.iterations", it)
     return _result(pose, M, d2, corr, it, H6, True, want_hessian)

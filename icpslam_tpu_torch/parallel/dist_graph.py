@@ -35,6 +35,7 @@ from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph import pose_graph as pg
 from icpslam_tpu_torch.graph import schur as schur_mod
 from icpslam_tpu_torch.parallel.mesh import Mesh, pad_to_multiple, shard_leading
+from icpslam_tpu_torch.utils import profiling
 from icpslam_tpu_torch.utils.sync import to_host
 
 # Timing-ablation knob (parallel/scaling.py): True leaves out the
@@ -241,3 +242,4 @@ def optimize(
 
 optimize.calls = 0
 optimize.replays = 0
+profiling.register_attribute("dist_graph.calls", optimize, "calls")

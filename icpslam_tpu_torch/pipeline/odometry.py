@@ -41,7 +41,7 @@ from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.ops import covariance as cov_ops
 from icpslam_tpu_torch.ops import icp as icp_ops
 from icpslam_tpu_torch.ops import skew_icp
-from icpslam_tpu_torch.utils import tree
+from icpslam_tpu_torch.utils import profiling, tree
 from icpslam_tpu_torch.utils.device import resolve as resolve_device
 from icpslam_tpu_torch.utils.sync import to_host
 
@@ -200,6 +200,7 @@ def _masked(points: torch.Tensor, mask: torch.Tensor) -> pc.PointCloud:
     return pc.PointCloud(points=torch.where(mask[:, None], points, 0.0), mask=mask)
 
 
+@profiling.spanned("odometry.step")
 def odometry_step(
     state: OdometryState, raw_scan: pc.PointCloud, config,
     do_register: Optional[bool] = None, skip: Optional[bool] = None,
@@ -226,22 +227,25 @@ def odometry_step(
         raw_scan = pc.transform(ext, raw_scan)
 
     def filter_and_covs(scan):
-        filtered, num_voxels = voxel_downsample(scan, config.voxel_leaf_size, config.max_points)
-        covs = compute_covariances(filtered, icfg) if plane else state.prev_covs
+        with profiling.annotate("odometry.filter"):
+            filtered, num_voxels = voxel_downsample(scan, config.voxel_leaf_size,
+                                                    config.max_points)
+            covs = compute_covariances(filtered, icfg) if plane else state.prev_covs
         return filtered, num_voxels, covs
 
     prev_len = state.prev_cloud.mask.sum(dtype=torch.int32)
 
     def register_icp(filtered, covs, init) -> _Registration:
-        res = icp_ops.icp(
-            filtered, state.prev_cloud, icfg,
-            init=init,
-            source_covs=covs if plane else None,
-            target_covs=state.prev_covs if plane else None,
-            target_valid_len=prev_len,
-            want_hessian=config.adaptive_information,
-        )
-        return _gate(res, icfg, config)
+        with profiling.annotate("odometry.register"):
+            res = icp_ops.icp(
+                filtered, state.prev_cloud, icfg,
+                init=init,
+                source_covs=covs if plane else None,
+                target_covs=state.prev_covs if plane else None,
+                target_valid_len=prev_len,
+                want_hessian=config.adaptive_information,
+            )
+            return _gate(res, icfg, config)
 
     stash_cloud = stash_u = None
     mode = config.deskew_mode if config.deskew_rounds > 0 else None
@@ -255,19 +259,20 @@ def odometry_step(
         )
         cv_twist = se3.se3_log(state.last_transform)
         if do_register:
-            res = skew_icp.coupled_deskew_icp(
-                filtered_s, state.prev_cloud, state.prev_u, icfg,
-                source_u=u_f, init=state.last_transform,
-                source_covs=covs if plane else None,
-                target_covs=state.prev_covs if plane else None,
-                target_valid_len=prev_len,
-                free_source_twist=config.deskew_free_twist,
-                source_twist_prior_weight=config.deskew_prior_weight,
-                prior_huber_delta=config.deskew_prior_huber,
-                auto_prior=auto_prior,
-                want_hessian=config.adaptive_information,
-            )
-            reg = _gate(res, icfg, config)
+            with profiling.annotate("odometry.register"):
+                res = skew_icp.coupled_deskew_icp(
+                    filtered_s, state.prev_cloud, state.prev_u, icfg,
+                    source_u=u_f, init=state.last_transform,
+                    source_covs=covs if plane else None,
+                    target_covs=state.prev_covs if plane else None,
+                    target_valid_len=prev_len,
+                    free_source_twist=config.deskew_free_twist,
+                    source_twist_prior_weight=config.deskew_prior_weight,
+                    prior_huber_delta=config.deskew_prior_huber,
+                    auto_prior=auto_prior,
+                    want_hessian=config.adaptive_information,
+                )
+                reg = _gate(res, icfg, config)
             src_twist = torch.where(reg.accepted, res.skew_twist, cv_twist)
         else:
             reg, src_twist = _no_registration(dev), cv_twist
@@ -284,17 +289,18 @@ def odometry_step(
         u_f = deskew_ops.sweep_fraction(filtered_s.points)
         cv_seed = se3.se3_log(state.last_transform)
         if do_register:
-            res = skew_icp.skew_aware_icp(
-                filtered_s, state.prev_cloud, icfg, sweep_u=u_f,
-                init=state.last_transform, init_skew=cv_seed,
-                source_covs=covs_s if plane else None,
-                target_covs=state.prev_covs if plane else None,
-                target_valid_len=prev_len,
-                # JAX keeps the joint mode at its measured weight, 1.0
-                skew_prior_weight=1.0,
-                want_hessian=config.adaptive_information,
-            )
-            reg = _gate(res, icfg, config)
+            with profiling.annotate("odometry.register"):
+                res = skew_icp.skew_aware_icp(
+                    filtered_s, state.prev_cloud, icfg, sweep_u=u_f,
+                    init=state.last_transform, init_skew=cv_seed,
+                    source_covs=covs_s if plane else None,
+                    target_covs=state.prev_covs if plane else None,
+                    target_valid_len=prev_len,
+                    # JAX keeps the joint mode at its measured weight, 1.0
+                    skew_prior_weight=1.0,
+                    want_hessian=config.adaptive_information,
+                )
+                reg = _gate(res, icfg, config)
             skew_twist = torch.where(reg.accepted, res.skew_twist, cv_seed)
         else:
             reg, skew_twist = _no_registration(dev), cv_seed

@@ -54,7 +54,7 @@ from icpslam_tpu_torch.parallel import dist_graph
 from icpslam_tpu_torch.pipeline import odometry as odo
 from icpslam_tpu_torch.pipeline import robot_odometry as robot_odo
 from icpslam_tpu_torch.utils.device import resolve as resolve_device
-from icpslam_tpu_torch.utils import tree
+from icpslam_tpu_torch.utils import profiling, tree
 from icpslam_tpu_torch.utils.sync import to_host
 
 
@@ -233,6 +233,7 @@ def _adaptive_information(H: torch.Tensor, diag) -> torch.Tensor:
     return torch.where(ok, sym, fixed)
 
 
+@profiling.spanned("loop_closure.verify")
 def _try_loop_closure(
     state: SlamState, new_idx: int, new_pose_graph: Pose, config
 ) -> Tuple[pg.EdgeSet, int]:
@@ -256,6 +257,7 @@ def _try_loop_closure(
     edges, n_ok = state.edges, 0
     if not host[1].any():
         return edges, 0
+    profiling.count("loop_closure.candidates", int((host[1] > 0).sum()))
 
     icfg = dataclasses.replace(config.icp_mapping, mode=config.loop_closure_icp_mode)
     plane = icfg.mode == "plane"
@@ -281,6 +283,7 @@ def _try_loop_closure(
         )
         edges = pg.add_edge(edges, int(cand), new_idx, res.pose, info, enable=ok)
         n_ok += int(to_host(ok))
+    profiling.count("loop_closure.accepted", n_ok)
     return edges, n_ok
 
 
@@ -333,6 +336,7 @@ def graph_solve(state: SlamState, config, counts: dict, full: bool, captured=Non
     return g.run() if g is not None else out
 
 
+@profiling.spanned("graph.solve")
 def _optimize(state: SlamState, config, counts: dict, mesh=None
               ) -> Tuple[SlamState, torch.Tensor]:
     """The graph solve, then the map reset and the ``map→odom`` recompute.
@@ -366,6 +370,7 @@ def _optimize(state: SlamState, config, counts: dict, mesh=None
     )
 
 
+@profiling.spanned("slam.step")
 def slam_step(
     state: SlamState, raw_scan: pc.PointCloud, config, stamp: float | None = None, mesh=None
 ) -> Tuple[SlamState, SlamOutput]:
@@ -447,49 +452,50 @@ def slam_step(
 
     kf_idx, loop_added, evicted = -1, 0, -1
     if want_kf:
-        if n_kf >= state.keyframes.capacity:
-            # a full store: marginalize the most redundant keyframe first
-            victim = marg.select_victim(
-                state.keyframes, state.edges,
-                protect_recent=config.keyframe_protect_recent,
-                loop_edge_penalty=config.keyframe_loop_edge_penalty,
+        with profiling.annotate("keyframes.add"):
+            if n_kf >= state.keyframes.capacity:
+                # a full store: marginalize the most redundant keyframe first
+                victim = marg.select_victim(
+                    state.keyframes, state.edges,
+                    protect_recent=config.keyframe_protect_recent,
+                    loop_edge_penalty=config.keyframe_loop_edge_penalty,
+                )
+                store, edges = marg.marginalize_keyframe(state.keyframes, state.edges, victim)
+                state = state._replace(keyframes=store, edges=edges)
+                n_kf -= 1
+                # fusion and compaction changed the edge count; the victim's
+                # index joins the read for a deferred solve in flight
+                n_edges, evicted = (int(v) for v in to_host(torch.stack([edges.count, victim])))
+            node_pose = se3.normalize(se3.compose(state.map_to_odom, slam_pose))
+            prev_idx = max(n_kf - 1, 0)
+            prev_odom = kf.latest_odom(state.keyframes)
+            store2, _ = kf.add(
+                state.keyframes, slam_pose, node_pose, oout.filtered, state.stamp, cov=pose_cov
             )
-            store, edges = marg.marginalize_keyframe(state.keyframes, state.edges, victim)
-            state = state._replace(keyframes=store, edges=edges)
-            n_kf -= 1
-            # fusion and compaction changed the edge count; the victim's
-            # index joins the read for a deferred solve in flight
-            n_edges, evicted = (int(v) for v in to_host(torch.stack([edges.count, victim])))
-        node_pose = se3.normalize(se3.compose(state.map_to_odom, slam_pose))
-        prev_idx = max(n_kf - 1, 0)
-        prev_odom = kf.latest_odom(state.keyframes)
-        store2, _ = kf.add(
-            state.keyframes, slam_pose, node_pose, oout.filtered, state.stamp, cov=pose_cov
-        )
-        kf_idx = n_kf
-        edges2 = pg.add_edge(
-            state.edges, prev_idx, kf_idx, se3.relative(prev_odom, slam_pose),
-            seq_info, enable=n_kf > 0,
-        )
-        n_edges += int(n_kf > 0)
-        if config.enable_wheel_odom_edges:
-            # the wheel-odometry edge between the same keyframe pair
-            wheel_ok = n_kf > 0 and bool(wheel_init) and bool(wheel_kf_valid)
-            wheel_rel = se3.relative(state.wheel_at_last_kf, state.robot_odom.pose)
+            kf_idx = n_kf
             edges2 = pg.add_edge(
-                edges2, prev_idx, kf_idx, wheel_rel,
-                _information(config.odometry_information, dev), enable=wheel_ok,
+                state.edges, prev_idx, kf_idx, se3.relative(prev_odom, slam_pose),
+                seq_info, enable=n_kf > 0,
             )
-            n_edges += int(wheel_ok)
-        n_kf += 1
-        kf_since += 1
-        state = state._replace(
-            keyframes=store2,
-            edges=edges2,
-            kf_since_opt=state.kf_since_opt + 1,
-            wheel_at_last_kf=state.robot_odom.pose,
-            wheel_kf_valid=state.robot_odom.initialized,
-        )
+            n_edges += int(n_kf > 0)
+            if config.enable_wheel_odom_edges:
+                # the wheel-odometry edge between the same keyframe pair
+                wheel_ok = n_kf > 0 and bool(wheel_init) and bool(wheel_kf_valid)
+                wheel_rel = se3.relative(state.wheel_at_last_kf, state.robot_odom.pose)
+                edges2 = pg.add_edge(
+                    edges2, prev_idx, kf_idx, wheel_rel,
+                    _information(config.odometry_information, dev), enable=wheel_ok,
+                )
+                n_edges += int(wheel_ok)
+            n_kf += 1
+            kf_since += 1
+            state = state._replace(
+                keyframes=store2,
+                edges=edges2,
+                kf_since_opt=state.kf_since_opt + 1,
+                wheel_at_last_kf=state.robot_odom.pose,
+                wheel_kf_valid=state.robot_odom.initialized,
+            )
         if config.enable_loop_closure:
             edges3, loop_added = _try_loop_closure(state, kf_idx, node_pose, config)
             n_edges += loop_added

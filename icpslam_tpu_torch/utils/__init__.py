@@ -4,5 +4,5 @@
 from icpslam_tpu_torch._exports import lazy
 
 __getattr__, __dir__, __all__ = lazy(
-    __name__, ("checkpoint", "frames", "logging", "profiling", "roofline", "device", "interop",
-               "sync", "tree"), {"Logger": "logging"})
+    __name__, ("checkpoint", "frames", "logging", "profiling", "device", "interop", "sync",
+               "tree"), {"Logger": "logging"})
