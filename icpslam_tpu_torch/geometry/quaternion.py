@@ -15,7 +15,9 @@ _EPS = 1e-12
 
 def identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
     q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    # a fill on the device: an indexed assignment of a Python scalar copies
+    # it from the host, a sync that a CUDA graph capture refuses
+    q[..., 0].fill_(1.0)
     return q
 
 

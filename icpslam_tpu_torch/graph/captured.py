@@ -7,7 +7,7 @@ A solve dispatched op by op costs the host a few thousand kernel launches
 keeps one ``torch.cuda.CUDAGraph`` per solve shape — the full solve of one
 bucket with one linear solver (``pose_graph.solve_bucket``) or the window
 solve (``pose_graph.optimize_window``), per iteration count, mode and
-option — captured at its first use after a warm-up on a side stream. Each
+option — captured at its first use by ``utils/cuda_graphs.capture``. Each
 graph owns static input buffers (the node poses, the node mask, every
 field of the edge store and the keyframe count, from which the window's
 ``start`` is computed on the device) and the static outputs it wrote
@@ -36,7 +36,7 @@ import torch
 from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.graph import pose_graph as pg
 from icpslam_tpu_torch.parallel import dist_graph
-from icpslam_tpu_torch.utils import profiling
+from icpslam_tpu_torch.utils import cuda_graphs
 
 _EDGE_FIELDS = pg.EdgeSet._fields
 
@@ -114,31 +114,13 @@ class CapturedSolves:
             g = self.graphs[key] = self._capture(inputs, solve, counter)
         return g
 
-    @profiling.spanned("graph.capture")
     def _capture(self, inputs, solve, counter) -> CapturedSolve:
         for name, x in inputs.items():
             if x.device != self.device:
                 raise ValueError(f"captured solve: input {name!r} is on {x.device}, "
                                  f"not {self.device}")
         static = {k: v.clone() for k, v in inputs.items()}
-        # the warm-up and the capture run the solve's Python body twice:
-        # the call counters count replays, not these
-        with profiling.paused():
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                # creates the cuBLAS / cuSOLVER handles and workspaces
-                # outside the capture
-                solve(static)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            # thread-local capture: the runner's prefetch thread keeps
-            # copying scans on its own stream meanwhile, and in the
-            # default global mode any such call from another thread
-            # invalidates the capture
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = solve(static)
-        profiling.count("graph.captures")
+        graph, outputs = cuda_graphs.capture(lambda: solve(static), self.device)
         return CapturedSolve(graph, static, outputs, counter)
 
     def prepare_full(self, nodes: Pose, edges: pg.EdgeSet, node_mask: torch.Tensor,

@@ -21,6 +21,13 @@ the few scalars the host needs. The (6×6 or 12×12) solve, the prior, the
 host in float32, like the 6×6 solve of ``ops/icp.py``. The target
 changes every iteration, so K1 stages it afresh on every call.
 
+In :func:`coupled_deskew_icp` the device work around K1 is split into
+segments over named buffers (:class:`_Iteration`): on a CUDA device each
+segment is a CUDA graph, captured at the first call of its shapes and
+flags and replayed after (a few launch calls an iteration instead of
+hundreds); K1 stays an eager call between them. Elsewhere the same
+segments run eagerly.
+
 K1 is exact here: JAX's ``prune_beyond`` cap is ignored (``ops/nn.py``),
 and every match beyond ``max_correspondence_distance`` is gated out of
 ``corr`` again below, so the correspondences are JAX's.
@@ -28,7 +35,8 @@ and every match beyond ``max_correspondence_distance`` is gated out of
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,7 +49,7 @@ from icpslam_tpu_torch.geometry.se3 import Pose
 from icpslam_tpu_torch.ops import nn as nn_ops
 from icpslam_tpu_torch.ops.icp import MIN_CORRESPONDENCES, _huber_weights
 from icpslam_tpu_torch.ops.linalg3 import inv_sym3_comps, rotate_sym3_comps
-from icpslam_tpu_torch.utils import profiling
+from icpslam_tpu_torch.utils import cuda_graphs, profiling
 from icpslam_tpu_torch.utils.sync import to_host
 
 
@@ -124,6 +132,176 @@ def _result(pose, M, d2, corr, it, H6, twist_free: bool, want_hessian: bool) -> 
     )
 
 
+class _Flags(NamedTuple):
+    """What the segments of the coupled GN iteration take as constants."""
+    plane: bool
+    clean_source: bool       # source_u is None
+    free: bool               # free_source_twist
+    auto: bool               # auto_prior is not None
+    max_d2: float
+    huber_delta: float
+
+
+def _start(x: dict, f: _Flags) -> None:
+    """Segment I: the source twist ``M`` from the loaded pose (free twist),
+    zero otherwise."""
+    if f.free:
+        x["M"].copy_(se3.se3_log(Pose(x["t"], x["q"])))
+    else:
+        x["M"].zero_()
+
+
+def _update(x: dict, f: _Flags) -> None:
+    """Segment U: ``pose ← normalize(exp(δ[:6]) ∘ pose)`` and ``M ← M + δ[6:]``
+    in place."""
+    delta = x["delta"]
+    pose = se3.normalize(se3.compose(se3.se3_exp(delta[:6]), Pose(x["t"], x["q"])))
+    x["t"].copy_(pose.t)
+    x["q"].copy_(pose.q)
+    if f.free:
+        x["M"].add_(delta[6:])
+
+
+def _warp(x: dict, f: _Flags) -> dict:
+    """Segment A: the warped source ``P`` in the target frame and the
+    warped target ``q_warp``, K1's inputs."""
+    pose = Pose(x["t"], x["q"])
+    R = quat.to_matrix(pose.q)
+    pts = x["pts"]
+    if f.clean_source:
+        p_warp = pts
+    elif f.free:
+        p_warp = deskew_points(pts, x["u"], se3.se3_exp(x["M"]))
+    else:
+        p_warp = deskew_points(pts, x["u"], pose)
+    P = (p_warp @ R.T + pose.t[None, :]).contiguous()
+    q_warp = deskew_points(x["q_pts"], x["v"], pose).contiguous()
+    return {"R": R, "P": P, "q_warp": q_warp}
+
+
+def _equations(x: dict, f: _Flags) -> dict:
+    """Segment B: from K1's ``idx`` and ``dist2``, the residuals, Huber
+    weights and Jacobians, reduced to ``s = [H | g | n_corr, n_src, extra]``
+    for the host; ``d2`` and ``corr`` for the result."""
+    P, R, idx, pts = x["P"], x["R"], x["idx"], x["pts"]
+    dtype, n = pts.dtype, pts.shape[0]
+    matched = torch.isfinite(x["dist2"])
+    q0, v = x["q_pts"][idx], x["v"][idx]
+    r = P - x["q_warp"][idx]
+    d2 = (r * r).sum(-1)
+    corr = x["src_mask"] & matched & (d2 <= f.max_d2)
+    w = _huber_weights(torch.sqrt(torch.clamp(d2, min=0.0)), f.huber_delta)
+    w = w * corr.to(dtype)
+    W = _information(f.plane, R, x.get("src_covs"), x.get("tgt_covs"), idx, n, pts)
+
+    J = _basis(P) - v[:, None, None] * _basis(q0)
+    if not f.clean_source:
+        J_src = x["u"][:, None, None] * torch.einsum("ab,nbk->nak", R, _basis(pts))
+        J = torch.cat([J, J_src], dim=-1) if f.free else J + J_src
+    H, g = _normal_equations(J, W, r, w)
+    extra = [corr.sum().to(dtype)[None], x["src_mask"].sum().to(dtype)[None]]
+    if f.free:
+        extra.append(x["M"] - se3.se3_log(Pose(x["t"], x["q"])))
+    if f.auto:
+        extra.append(torch.linalg.norm(se3.so3_log(x["q"]))[None])
+    return {"s": torch.cat([H.reshape(-1), g] + extra), "d2": d2, "corr": corr}
+
+
+_SEGMENTS = {"start": _start, "update": _update, "warp": _warp, "equations": _equations}
+
+
+class _Iteration:
+    """The device work of one coupled GN iteration, in segments over the
+    named buffers ``x``: I (``start``, once), A (``warp``), then K1 by the
+    caller, B (``equations``) and U (``update``, after the host's solve).
+    Each segment reads its inputs from ``x`` and the outputs of A feed B
+    through it. Eagerly (``graphs`` None) each call runs the segment's
+    body; captured, it replays the graph of that body, whose static
+    buffers ``x`` holds."""
+
+    def __init__(self, x: dict, flags: _Flags, graphs: Optional[dict] = None,
+                 outputs: Optional[dict] = None, delta_host: Optional[torch.Tensor] = None):
+        self.x, self.flags = x, flags
+        self.graphs, self.outputs, self.delta_host = graphs, outputs, delta_host
+
+    @classmethod
+    def captured(cls, static: dict, flags: _Flags) -> "_Iteration":
+        """Capture the four segments over the buffers ``static`` (their
+        contents are overwritten: the warm-ups run the bodies)."""
+        dev = static["pts"].device
+        graphs, outputs = {}, {}
+        for name, fn in _SEGMENTS.items():
+            graphs[name], outputs[name] = cuda_graphs.capture(
+                functools.partial(fn, static, flags), dev)
+            static.update(outputs[name] or {})
+        delta_host = torch.empty(static["delta"].shape, dtype=static["delta"].dtype,
+                                 pin_memory=True)
+        return cls(static, flags, graphs, outputs, delta_host)
+
+    def load(self, inputs: dict) -> None:
+        """Copy a call's inputs into the static buffers (captured only)."""
+        for name, src in inputs.items():
+            self.x[name].copy_(src)
+
+    def run(self, name: str):
+        if self.graphs is None:
+            out = _SEGMENTS[name](self.x, self.flags)
+            self.x.update(out or {})
+            return out
+        self.graphs[name].replay()
+        return self.outputs[name]
+
+    def update(self, delta: np.ndarray) -> None:
+        """Upload the host's step and run U."""
+        if self.delta_host is None:
+            self.x["delta"].copy_(torch.from_numpy(delta))
+        else:
+            # the host writes the pinned buffer again only after the next
+            # to_host, which the stream orders after this copy
+            self.delta_host.numpy()[:] = delta
+            self.x["delta"].copy_(self.delta_host, non_blocking=True)
+        self.run("update")
+
+
+# the captured iterations, by device, the inputs' shapes and dtypes, and
+# the flags (as jax.jit keeps one compiled loop body per shape)
+_CAPTURED: Dict[tuple, _Iteration] = {}
+
+
+def _buffers(x: dict, ndof: int) -> dict:
+    """``x`` with the buffers the segments write besides their outputs."""
+    pts = x["pts"]
+    dev, dtype, n = pts.device, pts.dtype, pts.shape[0]
+    return dict(x, M=torch.zeros(6, dtype=dtype, device=dev),
+                delta=torch.zeros(ndof, dtype=dtype, device=dev),
+                idx=torch.zeros(n, dtype=torch.int64, device=dev),
+                dist2=torch.zeros(n, dtype=dtype, device=dev))
+
+
+def _eager(inputs: dict, flags: _Flags, ndof: int) -> _Iteration:
+    """The iteration run segment by segment on the inputs (the pose
+    copied: U writes it in place)."""
+    x = dict(inputs, t=inputs["t"].clone(), q=inputs["q"].clone())
+    return _Iteration(_buffers(x, ndof), flags)
+
+
+def _iteration(inputs: dict, flags: _Flags, ndof: int) -> _Iteration:
+    """The captured iteration for these inputs on a CUDA device (captured
+    at first use, loaded with the inputs), the eager one elsewhere."""
+    dev = inputs["pts"].device
+    if dev.type != "cuda":
+        return _eager(inputs, flags, ndof)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev, flags) + tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs.items()))
+    body = _CAPTURED.get(key)
+    if body is None:
+        static = _buffers({k: v.clone() for k, v in inputs.items()}, ndof)
+        body = _CAPTURED[key] = _Iteration.captured(static, flags)
+    body.load(inputs)
+    return body
+
+
 def coupled_deskew_icp(
     source: PointCloud,
     target: PointCloud,
@@ -153,6 +331,11 @@ def coupled_deskew_icp(
     ``auto_prior = (w_straight, w_turn, threshold)`` uses ``w_straight``
     until the pose's rotation angle exceeds ``threshold`` in this solve,
     then ``w_turn`` for the rest of it (a latch).
+
+    On a CUDA device each iteration's work around the K1 call replays
+    captured CUDA graphs (:class:`_Iteration`; the counter
+    ``skew_icp.captured_iterations`` counts those iterations); elsewhere
+    the same segments run eagerly.
     """
     pts = source.points
     dev, dtype = pts.device, pts.dtype
@@ -166,54 +349,36 @@ def coupled_deskew_icp(
                          "sweep twist to estimate")
 
     n = pts.shape[0]
-    q_pts = target.points
-    v_all = target_u.to(dtype)
-    u_src = None if source_u is None else source_u.to(dtype)
     max_d2 = config.max_correspondence_distance ** 2
     ndof = 12 if free_source_twist else 6
     f32 = np.float32
     eye6 = np.eye(6, dtype=f32)
 
-    pose = init
-    M = se3.se3_log(init) if free_source_twist else torch.zeros(6, dtype=dtype, device=dev)
+    inputs = {"pts": pts, "q_pts": target.points, "v": target_u.to(dtype),
+              "src_mask": source.mask, "t": init.t, "q": init.q}
+    if source_u is not None:
+        inputs["u"] = source_u.to(dtype)
+    if plane:
+        inputs["src_covs"], inputs["tgt_covs"] = source_covs, target_covs
+    flags = _Flags(plane=plane, clean_source=source_u is None, free=free_source_twist,
+                   auto=auto_prior is not None, max_d2=float(max_d2),
+                   huber_delta=float(config.huber_delta))
+    body = _iteration(inputs, flags, ndof)
+    x = body.x
+    body.run("start")
     it, dnorm, relaxed = 0, float("inf"), False
-    d2 = torch.full((n,), float("inf"), dtype=dtype, device=dev)
-    corr = torch.zeros(n, dtype=torch.bool, device=dev)
+    eq = None
     H6 = np.zeros((6, 6), f32)
     while it < config.max_iterations and dnorm > config.transformation_epsilon:
-        R = quat.to_matrix(pose.q)
-        if u_src is None:
-            p_warp = pts
-        elif free_source_twist:
-            p_warp = deskew_points(pts, u_src, se3.se3_exp(M))
-        else:
-            p_warp = deskew_points(pts, u_src, pose)
-        P = (p_warp @ R.T + pose.t[None, :]).contiguous()
-        q_warp = deskew_points(q_pts, v_all, pose).contiguous()
+        body.run("warp")
         res = nn_ops.nearest_neighbors(
-            P, q_warp, target.mask, valid_len=target_valid_len, prune_beyond=float(max_d2)
+            x["P"], x["q_warp"], target.mask, valid_len=target_valid_len,
+            prune_beyond=float(max_d2)
         )
-        idx = res.idx
-        matched = torch.isfinite(res.dist2)
-        q0, v = q_pts[idx], v_all[idx]
-        r = P - q_warp[idx]
-        d2 = (r * r).sum(-1)
-        corr = source.mask & matched & (d2 <= max_d2)
-        w = _huber_weights(torch.sqrt(torch.clamp(d2, min=0.0)), config.huber_delta)
-        w = w * corr.to(dtype)
-        W = _information(plane, R, source_covs, target_covs, idx, n, pts)
-
-        J = _basis(P) - v[:, None, None] * _basis(q0)
-        if u_src is not None:
-            J_src = u_src[:, None, None] * torch.einsum("ab,nbk->nak", R, _basis(pts))
-            J = torch.cat([J, J_src], dim=-1) if free_source_twist else J + J_src
-        H, g = _normal_equations(J, W, r, w)
-        extra = [corr.sum().to(dtype)[None], source.mask.sum().to(dtype)[None]]
-        if free_source_twist:
-            extra.append(M - se3.se3_log(pose))
-        if auto_prior is not None:
-            extra.append(torch.linalg.norm(se3.so3_log(pose.q))[None])
-        s = to_host(torch.cat([H.reshape(-1), g] + extra))
+        x["idx"].copy_(res.idx)
+        x["dist2"].copy_(res.dist2)
+        eq = body.run("equations")
+        s = to_host(eq["s"])
         H = s[: ndof * ndof].reshape(ndof, ndof).copy()
         g = s[ndof * ndof : ndof * ndof + ndof].copy()
         n_corr, n_src = s[ndof * ndof + ndof], s[ndof * ndof + ndof + 1]
@@ -250,13 +415,19 @@ def coupled_deskew_icp(
         if not n_corr >= MIN_CORRESPONDENCES:
             delta = np.zeros(ndof, f32)
         dnorm = float(np.linalg.norm(delta))
-        delta_t = torch.from_numpy(delta).to(dev)
-        pose = se3.normalize(se3.compose(se3.se3_exp(delta_t[:6]), pose))
-        if free_source_twist:
-            M = M + delta_t[6:]
+        body.update(delta)
         it += 1
     profiling.count("icp.iterations", it)
-    return _result(pose, M, d2, corr, it, H6, free_source_twist, want_hessian)
+    if body.graphs is not None:
+        profiling.count("skew_icp.captured_iterations", it)
+    if eq is None:
+        d2 = torch.full((n,), float("inf"), dtype=dtype, device=dev)
+        corr = torch.zeros(n, dtype=torch.bool, device=dev)
+    else:
+        d2, corr = eq["d2"], eq["corr"]
+    # _result makes new tensors: nothing returned aliases a static buffer
+    return _result(Pose(x["t"], x["q"]), x["M"], d2, corr, it, H6, free_source_twist,
+                   want_hessian)
 
 
 def skew_aware_icp(

@@ -34,7 +34,12 @@ and at a tile's box edge just inside r); K3's pair counter must equal
   width, through K1 against the same call with K1's plain version on the
   card: iterations and correspondence counts equal, pose and twist within
   1e-6 (K1 equals its plain version bit for bit; the rest is the same
-  device arithmetic);
+  device arithmetic); the captured GN iteration against the same segments
+  run eagerly on the card, in the four variants of
+  ``tests/test_torch_deskew.py``: pose, twist, fitness, correspondences,
+  iterations and pose information equal to the bit (a graph replays the
+  kernels the eager path launches), one capture per key (four segments),
+  and a second call leaving the first call's result as it was;
 - voxel coordinates on the card equal the CPU's on points at and next to
   the voxel faces (the division by the resolution is correctly rounded
   on both);
@@ -574,6 +579,87 @@ def test_coupled_deskew_icp_through_k1_equals_plain(dev, monkeypatch):
     assert bool(k.converged)
     for a, b in ((k.pose.t, p.pose.t), (k.pose.q, p.pose.q), (k.skew_twist, p.skew_twist)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def physics_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernels have no CPU mode")
+    return _physics_pair(torch.device("cuda"))
+
+
+# the variants of tests/test_torch_deskew.py::COUPLED
+COUPLED = {
+    "cv-tied": dict(free_source_twist=False),
+    "free-twist": dict(free_source_twist=True, source_twist_prior_weight=100.0),
+    "free-twist huber": dict(free_source_twist=True, source_twist_prior_weight=100.0,
+                             prior_huber_delta=0.005),
+    "free-twist auto-prior": dict(free_source_twist=True, source_twist_prior_weight=100.0,
+                                  auto_prior=(2000.0, 100.0, 0.02)),
+}
+
+
+def _coupled_call(physics_pair, variant, reverse=False):
+    from icpslam_tpu_torch.cloud import deskew
+
+    cfg, pair = physics_pair
+    (f0, c0), (f1, c1) = pair[::-1] if reverse else pair
+    kw = dict(COUPLED[variant], source_u=deskew.sweep_fraction(f1.points), source_covs=c1,
+              target_covs=c0, target_valid_len=f0.mask.sum(dtype=torch.int32),
+              want_hessian=True)
+    return (f1, f0, deskew.sweep_fraction(f0.points), cfg.icp_odometry), kw
+
+
+def _result_tensors(r):
+    return (r.pose.t, r.pose.q, r.skew_twist, r.fitness, r.num_correspondences, r.iterations,
+            r.hessian)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(COUPLED))
+def test_captured_coupled_deskew_icp_equals_eager(physics_pair, variant, monkeypatch):
+    from icpslam_tpu_torch.ops import skew_icp
+    from icpslam_tpu_torch.utils import profiling
+
+    args, kw = _coupled_call(physics_pair, variant)
+    before, launches = profiling.snapshot()["counts"], tnn.nn1_cuda.launches
+    c = skew_icp.coupled_deskew_icp(*args, **kw)
+    after = profiling.snapshot()["counts"]
+    it = int(c.iterations)
+    assert it > 0 and tnn.nn1_cuda.launches - launches == it
+    assert (after.get("skew_icp.captured_iterations", 0)
+            - before.get("skew_icp.captured_iterations", 0)) == it
+    monkeypatch.setattr(skew_icp, "_iteration", skew_icp._eager)
+    e = skew_icp.coupled_deskew_icp(*args, **kw)
+    assert profiling.snapshot()["counts"].get("skew_icp.captured_iterations", 0) == \
+        after.get("skew_icp.captured_iterations", 0)
+    assert int(c.num_correspondences) > 1000 and bool(c.converged)
+    for a, b in zip(_result_tensors(c), _result_tensors(e)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_captured_coupled_deskew_icp_captures_once_and_aliases_nothing(physics_pair,
+                                                                        monkeypatch):
+    from icpslam_tpu_torch.ops import skew_icp
+    from icpslam_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(skew_icp, "_CAPTURED", {})
+    captures = profiling.snapshot()["counts"].get("graph.captures", 0)
+    args, kw = _coupled_call(physics_pair, "free-twist")
+    first = skew_icp.coupled_deskew_icp(*args, **kw)
+    kept = [t.clone() for t in _result_tensors(first)]
+    # the four segments (I, U, A, B) of one key
+    assert profiling.snapshot()["counts"]["graph.captures"] - captures == 4
+    assert len(skew_icp._CAPTURED) == 1
+    args, kw = _coupled_call(physics_pair, "free-twist", reverse=True)
+    second = skew_icp.coupled_deskew_icp(*args, **kw)
+    torch.cuda.synchronize()
+    assert profiling.snapshot()["counts"]["graph.captures"] - captures == 4
+    assert len(skew_icp._CAPTURED) == 1
+    assert not torch.equal(second.pose.t, first.pose.t)
+    for a, b in zip(_result_tensors(first), kept):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -25,6 +25,11 @@ Tolerances:
   within 1e-5 — the port's voxel filter sums its centroids in float64,
   JAX's in float32 (~1e-4 m apart); the covariances handed to mapping
   within 1e-3 on at least 99% of the points.
+
+On the CPU ``coupled_deskew_icp`` runs its iteration's segments eagerly
+(no CUDA graph captured, no iteration counted as replayed; the card's
+tests hold the captured path to the eager one), and
+``quaternion.identity`` is [1, 0, 0, 0] in every shape and dtype.
 """
 
 import torch
@@ -61,6 +66,7 @@ from icpslam_tpu_torch.ops import nn as tnn
 from icpslam_tpu_torch.ops import skew_icp as tskew
 from icpslam_tpu_torch.pipeline import odometry as todo
 from icpslam_tpu_torch.utils import interop
+from icpslam_tpu_torch.utils import profiling as tprof
 
 RENDER = dict(n_beams=32, azimuth_bins=512)
 ICP = dict(mode="plane", max_iterations=15, max_correspondence_distance=2.0, huber_delta=1.0)
@@ -177,6 +183,31 @@ def test_coupled_deskew_icp_matches_jax(pair, variant):
         source_u=tdsk.sweep_fraction(t1.points), source_covs=tc1, target_covs=tc0,
         target_valid_len=t0.mask.sum(dtype=torch.int32), **kw)
     _close(jr, tr)
+
+
+def test_coupled_deskew_icp_on_the_cpu_captures_nothing(pair):
+    """The CPU runs the iteration's segments eagerly: no CUDA graph is
+    captured and no iteration counts as replayed."""
+    (t0, tc0), (t1, tc1) = pair["port"]
+    before = tprof.snapshot()["counts"]
+    tr = tskew.coupled_deskew_icp(
+        t1, t0, tdsk.sweep_fraction(t0.points), TIcp(**ICP),
+        source_u=tdsk.sweep_fraction(t1.points), source_covs=tc1, target_covs=tc0,
+        target_valid_len=t0.mask.sum(dtype=torch.int32), **COUPLED["free-twist"])
+    after = tprof.snapshot()["counts"]
+    assert after.get("icp.iterations", 0) - before.get("icp.iterations", 0) == int(tr.iterations) > 0
+    assert after.get("graph.captures", 0) == before.get("graph.captures", 0)
+    assert after.get("skew_icp.captured_iterations", 0) == 0
+    assert not tskew._CAPTURED
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(), (5,), (2, 3)])
+def test_identity_quaternion(shape, dtype):
+    q = tquat.identity(shape, dtype)
+    assert q.shape == shape + (4,) and q.dtype == dtype
+    want = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype).expand(shape + (4,))
+    assert torch.equal(q, want)
 
 
 def test_skew_aware_icp_matches_jax(pair):
