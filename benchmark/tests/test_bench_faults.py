@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from icpslam_tpu_torch.pipeline import odometry, slam
-from yardstick import bench, drive, spec
+from yardstick import bench, drive, layers, spec
 from yardstick import traffic as tr
 
 torch.set_num_threads(1)
@@ -60,6 +60,32 @@ def test_traced_run_is_correct_and_fills_the_spans(small):
     assert len(ctx.implicit_syncs) == len(ctx.completions)
     outer = drive.context(w, 1.0, profiled=w)
     assert spec._reader("odometry_ms_per_scan", spec.BENCH_DIR)(outer) > 0.0
+
+
+def test_traced_run_fills_the_program_spans_and_counts(small):
+    """The profiled window runs under the program's tracing: each replay's
+    spans and counters laid end to end along the window's scans, and the
+    layer readers reading them."""
+    ok, nums, w = verdict(small, traced=True)
+    assert ok, nums
+    outer = drive.context(w, 1.0, profiled=w)
+    ctx = outer.profiled
+    n, total = ctx.n, len(ctx.completions)
+    assert n > 0 and {"slam.step", "odometry.step", "scan_to_map.refine"} <= set(ctx.program_spans)
+    assert ctx.program_spans["odometry.step"]["parent"] == "slam.step"
+    for table in (ctx.program_spans, ctx.program_counts):
+        assert {len(v) for by in table.values() for v in by.values() if isinstance(v, list)} == {
+            total}
+    assert ctx.program_counts["host_syncs"]["total"] == ctx.host_syncs
+    records = np.concatenate(w.replays)[:n]
+    iterations = spec._reader("odometry_iterations_per_scan", spec.BENCH_DIR)(outer)
+    assert iterations == pytest.approx(float(records[:, 10].mean())) and iterations > 0
+    assert spec._reader("scan_to_map_iterations_per_scan", spec.BENCH_DIR)(outer) > 0
+    # no implicit sync off the card; the layers' syncs and the rest sum to the window's
+    assert sum(ctx.implicit_syncs) == 0 and ctx.implicit_by_span == {}
+    got = layers.rollup(ctx)
+    assert sum(v["syncs"] for k, v in got.items() if k != "window") == pytest.approx(
+        got["window"]["syncs"]) and got["window"]["syncs"] > 0
 
 
 def test_a_traced_window_names_a_span_target_that_is_gone(small, monkeypatch):

@@ -87,8 +87,14 @@ def test_new_files_and_entries_add_a_cell_and_a_metric(tmp_path):
     traffic = json.loads((root / "benchmark/traffic/revisit.json").read_text())
     traffic["scans"] = 271
     (root / "benchmark/traffic/one_lap.json").write_text(json.dumps(traffic))
+    # a reader of a program counter, counted by span in the profiled window
     (root / "benchmark/metrics/map_points_per_scan.py").write_text(
-        "def read(ctx):\n    return 42.0 if ctx.n else None\n")
+        "def read(ctx):\n"
+        "    p = ctx.profiled\n"
+        "    if p is None or p.program_counts is None or p.n == 0:\n"
+        "        return None\n"
+        "    by = p.program_counts.get('voxel_map.inserted', {})\n"
+        "    return sum(by.get('scan_to_map.insert', [])[:p.n]) / p.n\n")
     b["configs"].append(dict(b["configs"][0], name="kitti_hdl64_voxel",
                              file="benchmark/configs/kitti_hdl64_voxel.json"))
     b["workloads"].append({"name": "kitti_hdl64_voxel.one_lap", "config": "kitti_hdl64_voxel",
@@ -101,9 +107,16 @@ def test_new_files_and_entries_add_a_cell_and_a_metric(tmp_path):
     assert cell.config["slam"]["map_backend"] == "voxel" and cell.traffic["scans"] == 271
     assert [m.name for m in cell.metrics] == ["map_points_per_scan"]
 
-    class Ctx:
+    class Profiled:
         n = 3
+        program_counts = {"voxel_map.inserted": {"total": [40.0, 44.0, 42.0, 9.0],
+                                                 "scan_to_map.insert": [40.0, 44.0, 42.0, 9.0]}}
+
+    class Ctx:
+        profiled = Profiled()
     assert cell.metrics[0].read(Ctx()) == 42.0
+    Ctx.profiled = None
+    assert cell.metrics[0].read(Ctx()) is None
     e2e = spec.load_cell("kitti_hdl64_voxel.one_lap", trace=False, root=str(root))
     assert [m.name for m in e2e.metrics] == [m["name"] for m in b["end_to_end"]
                                              if "workloads" not in m]

@@ -62,9 +62,10 @@ def test_host_gap_and_step_median():
 
 
 def test_union_of_busy_intervals_and_gaps():
-    iv = [(0.5, 1.5), (1.0, 2.0), (3.0, 4.0), (9.5, 12.0)]
-    assert timeline.busy(iv, 0.0, 10.0) == pytest.approx(1.5 + 1.0 + 0.5)
-    assert timeline.gaps(iv, 0.0, 10.0) == [(0.0, 0.5), (2.0, 3.0), (4.0, 9.5)]
+    a, b = zip((0.5, 1.5), (1.0, 2.0), (3.0, 4.0), (9.5, 12.0))
+    busy, g0, g1 = timeline.union(np.asarray(a), np.asarray(b), 0.0, 10.0)
+    assert busy == pytest.approx(1.5 + 1.0 + 0.5)
+    assert list(zip(g0.tolist(), g1.tolist())) == [(0.0, 0.5), (2.0, 3.0), (4.0, 9.5)]
 
 
 def test_trace_summary_idle_share_and_kernel_calls():
@@ -129,3 +130,4 @@ def test_kernel_bytes():
 def test_percentile_matches_numpy():
     v = np.random.RandomState(0).exponential(size=333)
     assert timeline.percentile(v, 95) == pytest.approx(np.percentile(v, 95))
+

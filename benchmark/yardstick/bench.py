@@ -12,7 +12,8 @@ import time
 import numpy as np
 import torch
 
-from yardstick import compare, drive, imports, reference
+from icpslam_tpu_torch.utils import profiling
+from yardstick import compare, drive, imports, layers, reference
 from yardstick.traffic import trajectory
 
 
@@ -57,6 +58,18 @@ def _log_window(w: drive.Window, ctx, scans: int) -> None:
               f"second half; map points max {int(records[:, 15].max())}")
 
 
+def _log_layers(ctx) -> None:
+    """The layers and the rest against the window's totals, per scan:
+    launch calls, device ms (against busy), syncs (counted + implicit)."""
+    got = layers.rollup(ctx)
+    if got is None:
+        return
+    for what in ("launches", "device_ms", "syncs"):
+        parts = " + ".join(f"{k} {v[what]!r}" for k, v in got.items() if k != "window")
+        total = sum(v[what] for k, v in got.items() if k != "window")
+        drive.log(f"layers: {what} a scan {parts} = {total!r}; the window's {got['window'][what]!r}")
+
+
 def run(cell, args, render, t0: float) -> int:
     drive.log(f"set-up: torch and the program imported at {time.perf_counter() - t0:.2f} s")
     dev = torch.device("cuda", 0)
@@ -80,8 +93,11 @@ def run(cell, args, render, t0: float) -> int:
               f"a scan; waited {time.perf_counter() - t:.2f} s after the kernels")
     gt_t, gt_q = trajectory(traffic, sensor, args.seed)
     init = (gt_t[0], gt_q[0])
+    before = profiling.snapshot()
     warm_s = drive.warm(cfg, scans, init, rate, dev)
-    drive.log(f"warm-up: {warm_s:.2f} s, done at {time.perf_counter() - t0:.2f} s")
+    built = profiling.delta(before, profiling.snapshot())["counts"].get("graph.captures", 0)
+    drive.log(f"warm-up: {warm_s:.2f} s, {built} graph captures (graph.captures), "
+              f"done at {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize(dev)
     n_check = int(traffic["check_scans"])
     window = drive.run_window(cfg, scans, init, rate, float(args.seconds), dev, traced=False,
@@ -102,6 +118,7 @@ def run(cell, args, render, t0: float) -> int:
             metrics[m.name] = {"value": float(value), "unit": m.unit}
     for w, c in zip(windows, (ctx, ctx.profiled)):
         _log_window(w, c, int(traffic["scans"]))
+    _log_layers(ctx.profiled)
     drive.log(f"setup {setup_s:.3f} s; peak {peak} bytes")
     gc.collect()
     torch.cuda.empty_cache()

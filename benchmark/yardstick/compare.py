@@ -31,15 +31,15 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 # each between the sound runs' readings (the system equals the reference
-# bit for bit: 0) and the TF32 control's least (PERF.md §4)
+# bit for bit: 0) and the TF32 control's least over every cell (PERF.md §4)
 LIMITS = {
-    "pose_gap_m": 2.0e-4,
-    "rot_gap_rad": 3.0e-6,
-    "fitness_gap": 4.0e-7,
+    "pose_gap_m": 8.0e-5,
+    "rot_gap_rad": 2.0e-6,
+    "fitness_gap": 3.0e-7,
     "count_gap": 0.0,
     "decision_mismatches": 0.0,
-    "graph_pose_gap_m": 2.0e-4,
-    "graph_rot_gap_rad": 3.0e-6,
+    "graph_pose_gap_m": 8.0e-5,
+    "graph_rot_gap_rad": 2.0e-6,
 }
 
 DECISIONS = (7, 11, 12, 13, 14, 16)

@@ -5,7 +5,11 @@ which each scan's step had finished on the device, in order, over every
 replay of the window and the few scans the prefetch had read past its
 end. ``n`` of them fall inside the window; readers use those. In a
 ``--trace 1`` run the host-clock readers read the untraced window and
-the others its ``profiled`` twin, the traced window that follows it.
+the others its ``profiled`` twin, the traced window that follows it,
+which runs under the program's own tracing: its ``program_spans`` and
+``program_counts`` are ``RunResult.spans`` and ``RunResult.counts``
+(``icpslam_tpu_torch/io/runner.py``) of each replay, under the program's
+names, laid end to end.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ class TraceSummary:
     device_ops: List[Tuple[str, float]]   # the costliest device ops
     idle_gaps: List[Tuple[str, float]]    # idle device time by what the host was doing
     kernels: Dict[str, KernelShare]       # 'k1', 'k2'
+    # launch calls and device seconds of the window scans' work, by the
+    # innermost program span open on the calling thread (None: outside all)
+    by_span: Dict[Optional[str], Tuple[int, float]] = dataclasses.field(default_factory=dict)
+    launch_calls: int = 0                 # kernel and graph launch calls in the window
 
 
 @dataclasses.dataclass
@@ -46,6 +54,13 @@ class RunContext:
     optimized: List[float]              # the record's 'optimized' flag
     implicit_syncs: Optional[List[float]] = None   # traced runs: syncs PyTorch made
     spans: Optional[Dict[str, List[float]]] = None  # traced runs: seconds per scan by span
+    # traced runs, per scan: the program's spans, name -> {"total", "self":
+    # ms, "parent": its parent span}; its counters, name -> {"total" or the
+    # innermost span counted in ("(none)": none) -> count}; the implicit
+    # syncs by the innermost program span open when each was made (None: none)
+    program_spans: Optional[Dict[str, dict]] = None
+    program_counts: Optional[Dict[str, Dict[str, List[float]]]] = None
+    implicit_by_span: Optional[Dict[Optional[str], List[float]]] = None
     trace: Optional[TraceSummary] = None            # traced runs
     profiled: Optional["RunContext"] = None         # traced runs: the profiled window
 

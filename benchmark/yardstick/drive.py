@@ -12,12 +12,14 @@ re-initialisation counts in the window. A scan completes when the
 synchronized the current stream.
 
 In a ``--trace 1`` run a second window follows the first under
-``torch.profiler``, with the benchmark's spans around the named program
-functions (no synchronize), the K1/K2 calls' sizes recorded, and
-``torch.cuda.set_sync_debug_mode("warn")`` counting the syncs PyTorch
-makes on its own. The spans and the size records replace module
-attributes of the program; a traced run stops, naming the attribute,
-where one is gone.
+``torch.profiler`` and the program's own tracing
+(``icpslam_tpu_torch.utils.profiling.tracing``), with the benchmark's
+spans around the named program functions (no synchronize), the K1/K2
+calls' sizes recorded, and ``torch.cuda.set_sync_debug_mode("warn")``
+counting the syncs PyTorch makes on its own, each tagged with the
+innermost program span open on its thread when it is made. The spans and
+the size records replace module attributes of the program; a traced run
+stops, naming the attribute, where one is gone.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ from icpslam_tpu_torch.io import runner
 from icpslam_tpu_torch.mapping import scan_to_map
 from icpslam_tpu_torch.ops import nn as nn_ops
 from icpslam_tpu_torch.pipeline import odometry, slam
+from icpslam_tpu_torch.utils import profiling
 from icpslam_tpu_torch.utils.logging import Logger
-from yardstick import roofline, trace
+from yardstick import roofline, timeline, trace
 from yardstick.context import RunContext
 from yardstick.traffic import pad
 
@@ -76,6 +79,9 @@ class Window:
     implicit_syncs: Optional[List[float]] = None
     trace_events: Optional[list] = None
     kernel_calls: Optional[Dict[str, list]] = None
+    program_spans: Optional[Dict[str, dict]] = None
+    program_counts: Optional[Dict[str, Dict[str, List[float]]]] = None
+    implicit_by_span: Optional[Dict[Optional[str], List[float]]] = None
 
 
 def _source(scans: Sequence[np.ndarray], capacity: int, rate_hz: float,
@@ -151,16 +157,49 @@ def _kernel(orig: Callable, calls: list, knn: bool):
     return wrapped
 
 
-def _implicit(records, marks: List[int]) -> List[float]:
+def _implicit(records, marks: List[int]):
     """Per scan (``marks``: the warning count at each completion), the sync
     warnings that neither a counted host read (``utils/sync.py``) nor a
-    stream or event synchronize made."""
+    stream or event synchronize made (``records``: (message, file, the
+    innermost program span open when it was made)): in all, and by span."""
     own = ("icpslam_tpu_torch/utils/sync.py", "torch/cuda/streams.py")
-    implicit = [i for i, r in enumerate(records)
-                if "synchronizing CUDA operation" in str(r.message)
-                and not r.filename.replace("\\", "/").endswith(own)]
-    counts = np.searchsorted(np.asarray(implicit, np.int64), np.asarray(marks, np.int64))
-    return np.diff(np.concatenate([[0], counts])).astype(float).tolist()
+    implicit = [(i, span) for i, (message, filename, span) in enumerate(records)
+                if "synchronizing CUDA operation" in message
+                and not filename.replace("\\", "/").endswith(own)]
+    edges = np.asarray(marks, np.int64)
+
+    def per_scan(rows) -> List[float]:
+        counts = np.searchsorted(np.asarray(rows, np.int64), edges)
+        return np.diff(np.concatenate([[0], counts])).astype(float).tolist()
+
+    by_span = {span: per_scan([i for i, s in implicit if s == span])
+               for span in {s for _, s in implicit}}
+    return per_scan([i for i, _ in implicit]), by_span
+
+
+def _append_replay(into: Dict[str, dict], replay: Dict[str, dict], offset: int) -> None:
+    """Append one replay's per-scan lists (``replay``: name -> key -> list,
+    or a span's "parent") to the window's (``into``), each list first
+    filled with zeros up to ``offset``, the window's scans before the
+    replay; :func:`_pad` evens them out at the end."""
+    for name, by in replay.items():
+        dst = into.setdefault(name, {})
+        for key, v in by.items():
+            if isinstance(v, list):
+                got = dst.setdefault(key, [])
+                got.extend([0.0] * (offset - len(got)))
+                got.extend(v)
+            else:
+                dst[key] = v
+
+
+def _pad(table: Dict[str, dict], n: int) -> Dict[str, dict]:
+    """Fill each list of ``table`` with zeros up to ``n`` scans."""
+    for by in table.values():
+        for v in by.values():
+            if isinstance(v, list):
+                v.extend([0.0] * (n - len(v)))
+    return table
 
 
 def _graph(state) -> tuple:
@@ -195,6 +234,17 @@ def run_window(cfg, scans, init, rate_hz: float, seconds: float, device,
     marks: List[int] = []
     recs: list = []
     calls = {key: [] for key in KERNELS}
+    program_spans: Dict[str, dict] = {}
+    program_counts: Dict[str, dict] = {}
+    timing: Dict[str, float] = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        recs.append((str(message), filename, profiling.current()))
+
+    def stop():
+        t = time.perf_counter()
+        prof.stop()
+        timing["profiler_s"] = time.perf_counter() - t
 
     def hook(state, out):
         if cuda:
@@ -221,16 +271,19 @@ def run_window(cfg, scans, init, rate_hz: float, seconds: float, device,
     with contextlib.ExitStack() as stack:
         stack.enter_context(_patched(patches))
         if traced:
+            stack.enter_context(profiling.tracing())
             acts = [torch.profiler.ProfilerActivity.CPU]
             if cuda:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
                 torch.cuda.set_sync_debug_mode("warn")
                 stack.callback(torch.cuda.set_sync_debug_mode, 0)
-            recs = stack.enter_context(warnings.catch_warnings(record=True))
+            stack.enter_context(warnings.catch_warnings())
             warnings.simplefilter("always")
+            # each warning with the span open on its thread as it is raised
+            warnings.showwarning = show
             prof = torch.profiler.profile(activities=acts)
             prof.start()
-            stack.callback(prof.stop)
+            stack.callback(stop)
             stack.enter_context(torch.profiler.record_function("bench.window"))
         start = time.perf_counter()
         deadline = start + seconds
@@ -239,7 +292,10 @@ def run_window(cfg, scans, init, rate_hz: float, seconds: float, device,
             res = runner.run_slam(_source(scans, cfg.max_raw_points, rate_hz, deadline), cfg,
                                   _pose(init, dev), dev, post_step=hook, chunk=1,
                                   logger=quiet, prefetch_depth=3)
+            offset = len(per["step_s"])
             per["step_s"].extend(ms / 1000.0 for ms in res.step_ms)
+            _append_replay(program_spans, res.spans, offset)
+            _append_replay(program_counts, res.counts, offset)
             per["host_syncs"].extend(res.host_syncs)
             per["window_solves"].extend(res.window_solves)
             per["optimized"].extend(float(x) for x in res.records[:, 14])
@@ -253,12 +309,17 @@ def run_window(cfg, scans, init, rate_hz: float, seconds: float, device,
                graphs=graphs, **per)
     if traced:
         t0 = time.perf_counter()
+        n = len(completions)
         w.spans = spans
-        w.implicit_syncs = _implicit(recs, marks)
-        w.trace_events = trace.events_from_profiler(prof, "bench.window") if prof else []
+        w.implicit_syncs, w.implicit_by_span = _implicit(recs, marks)
+        w.program_spans = _pad(program_spans, n)
+        w.program_counts = _pad(program_counts, n)
+        names = profiling.snapshot()["parents"]
+        w.trace_events = trace.events_from_profiler(prof, "bench.window", names) if prof else []
         w.kernel_calls = calls
-        log(f"trace: {len(w.trace_events)} events read in {time.perf_counter() - t0:.2f} s, "
-            f"the window closed {t0 - deadline:.2f} s before")
+        log(f"trace: {len(w.trace_events)} events read in {time.perf_counter() - t0:.2f} s "
+            f"(reader); the profiler stopped in {timing.get('profiler_s', 0.0):.2f} s "
+            f"(profiler); the window closed {t0 - deadline:.2f} s before")
     return w
 
 
@@ -285,11 +346,19 @@ def context(w: Window, setup_s: float, profiled: Optional[Window] = None) -> Run
     followed it."""
     summary = None
     if w.trace_events is not None:
-        summary = trace.summarize(w.trace_events, w.seconds, kernel_bounds(w.kernel_calls))
+        t0 = time.perf_counter()
+        n = timeline.in_window(w.completions, w.start, w.seconds)
+        # the device work of the window's scans: launched before the last completes
+        until = w.completions[n - 1] - w.start if n else 0.0
+        summary = trace.summarize(w.trace_events, w.seconds, kernel_bounds(w.kernel_calls),
+                                  until=until)
+        log(f"trace: summarized in {time.perf_counter() - t0:.2f} s (summary)")
     return RunContext(seconds=w.seconds, start=w.start, setup_s=setup_s,
                       completions=w.completions, step_s=w.step_s, host_syncs=w.host_syncs,
                       window_solves=w.window_solves, optimized=w.optimized,
                       implicit_syncs=w.implicit_syncs, spans=w.spans, trace=summary,
+                      program_spans=w.program_spans, program_counts=w.program_counts,
+                      implicit_by_span=w.implicit_by_span,
                       profiled=context(profiled, setup_s) if profiled is not None else None)
 
 

@@ -9,7 +9,7 @@ clock.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -63,26 +63,26 @@ def host_gap(completions: Sequence[float], start: float, seconds: float,
     return max(float(completions[n - 1] - start) - float(np.sum(step_s[:n])), 0.0)
 
 
-def busy(intervals: Iterable[Tuple[float, float]], lo: float, hi: float) -> float:
-    """Length of the union of ``intervals`` clipped to ``[lo, hi]``."""
-    spans = sorted((max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi)
-    total, end = 0.0, lo
-    for a, b in spans:
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
-def gaps(intervals: Iterable[Tuple[float, float]], lo: float, hi: float
-         ) -> List[Tuple[float, float]]:
-    """The idle gaps of ``[lo, hi]`` outside the union of ``intervals``."""
-    spans = sorted((max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi)
-    out, end = [], lo
-    for a, b in spans:
-        if a > end:
-            out.append((end, a))
-        end = max(end, b)
-    if hi > end:
-        out.append((end, hi))
-    return out
+def union(starts: np.ndarray, ends: np.ndarray, lo: float, hi: float
+          ) -> Tuple[float, np.ndarray, np.ndarray]:
+    """The union of the intervals ``[starts[i], ends[i]]`` clipped to
+    ``[lo, hi]``: its length, and the starts and ends of the gaps of
+    ``[lo, hi]`` outside it. One pass over the intervals in order of
+    start: the union's running end is a running maximum, and its length a
+    sequential sum (``cumsum``)."""
+    a, b = np.asarray(starts, np.float64), np.asarray(ends, np.float64)
+    keep = (b > lo) & (a < hi)
+    a, b = np.maximum(a[keep], lo), np.minimum(b[keep], hi)
+    order = np.lexsort((b, a))
+    a, b = a[order], b[order]
+    # the union's end as each interval comes
+    end = np.maximum.accumulate(np.concatenate([[lo], b]))
+    before, last = end[:-1], float(end[-1])
+    grows = b > before
+    part = np.where(grows, b - np.maximum(a, before), 0.0)
+    total = float(np.cumsum(part)[-1]) if part.size else 0.0
+    opens = a > before
+    g0, g1 = before[opens], a[opens]
+    if hi > last:
+        g0, g1 = np.append(g0, last), np.append(g1, hi)
+    return total, g0, g1
